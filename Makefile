@@ -1,7 +1,8 @@
-# Common targets. Tests force the CPU platform with a virtual 8-device mesh.
+# Common targets. Tests force the CPU platform with a virtual 8-device mesh;
+# bench and smoke need a GPU.
 PY ?= python
 
-.PHONY: test bench native lint dryrun
+.PHONY: test bench smoke native lint dryrun
 
 test:
 	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -10,11 +11,15 @@ test:
 bench:
 	$(PY) bench.py
 
+smoke:
+	$(PY) chip_smoke.py
+
+# builds wavefarm/native/build/libwafer_native.so from src/wafer_native.cpp
 native:
-	$(PY) -c "from wafer_tpu import native; assert native.available(); print('native codecs OK')"
+	$(PY) -c "from wavefarm import native; assert native.available(); print('native codecs OK')"
 
 dryrun:
-	$(PY) __graft_entry__.py 8
+	$(PY) __graft_entry__.py 4
 
 lint:
-	$(PY) -m compileall -q wafer_tpu tests
+	$(PY) -m compileall -q wavefarm tests

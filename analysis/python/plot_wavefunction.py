@@ -41,7 +41,7 @@ def _load_obj_array(obj) -> np.ndarray:
 
 def load_array(run_dir: str, stem: str):
     """Load ``stem`` in whichever of the 5 formats the run used
-    (csv/json/yaml via stdlib; mpk/ron through wafer_tpu.io when the
+    (csv/json/yaml via stdlib; mpk/ron through wavefarm.io when the
     package is importable). Returns None when no file exists."""
     import json
 
@@ -58,10 +58,10 @@ def load_array(run_dir: str, stem: str):
             with open(path) as fh:
                 return _load_obj_array(yaml.safe_load(fh))
         try:  # mpk / ron need the package's codecs
-            from wafer_tpu.io import formats
+            from wavefarm.io import formats
         except ImportError as exc:  # pragma: no cover
             raise SystemExit(
-                f"{path}: reading .{ext} needs wafer_tpu on PYTHONPATH"
+                f"{path}: reading .{ext} needs wavefarm on PYTHONPATH"
             ) from exc
         with open(path, "rb") as fh:
             blob = fh.read()

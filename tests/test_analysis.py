@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import solver
-from wafer_tpu.io import run_dir
+from wavefarm import solver
+from wavefarm.io import run_dir
 
 SCRIPT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

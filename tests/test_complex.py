@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import solver
-from wafer_tpu.io import run_dir
+from wavefarm import solver
+from wavefarm.io import run_dir
 
 
 def test_complex_harmonic_ground_state(tmp_run):
@@ -68,7 +68,7 @@ def test_complex_full_cornell_e2e(tmp_run, monkeypatch):
     at absorb>0 the ground state acquires a thermal width
     Im E ≈ absorb·⟨V⟩ > 0 while the binding energy still reads off the
     real part's per-cell V(∞) array."""
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     common = dict(
@@ -113,12 +113,12 @@ def test_complex_full_cornell_e2e(tmp_run, monkeypatch):
 
 def test_complex_observables_file_output(tmp_run):
     """Complex runs surface Im(E) in the summary dict."""
-    from wafer_tpu.io import writers
-    from wafer_tpu.ops.observables import Observables
+    from wavefarm.io import writers
+    from wavefarm.ops.observables import Observables
 
     run_dir.check_output_dir("cplx")
     obs = Observables(energy=1.5 + 0.25j, norm2=1.0, v_infinity=0.0, r2=4.0)
-    from wafer_tpu.config import FileType
+    from wavefarm.config import FileType
 
     out = writers.finalise_measurement(obs, 0, 16.0, "cplx", FileType.JSON)
     assert out["energy"] == 1.5
@@ -128,7 +128,7 @@ def test_complex_observables_file_output(tmp_run):
 def test_split_complex_path_matches_native(tmp_run, monkeypatch):
     """The split-complex fallback (for backends without complex dtypes)
     reproduces the native complex path's converged energy."""
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.ops import split_complex as sc
 
     gamma = 0.2
     common = dict(
@@ -164,8 +164,8 @@ def test_split_measure_hybrid_accumulation():
     import jax
     import jax.numpy as jnp
 
-    from wafer_tpu.ops import split_complex as sc
-    from wafer_tpu.ops.stencil import stencil_taps
+    from wavefarm.ops import split_complex as sc
+    from wavefarm.ops.stencil import stencil_taps
 
     if not jax.config.jax_enable_x64:
         pytest.skip("hybrid path engages under x64 only")
@@ -246,8 +246,8 @@ def test_split_snapshot_lifecycle(tmp_run, monkeypatch):
     import glob
     import os
 
-    from wafer_tpu.io import writers
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.io import writers
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     cfg = _split_cfg(output={"snap_update": 100})
@@ -276,7 +276,7 @@ def test_split_sync_update_matches_per_chunk(tmp_run, monkeypatch):
     count, final complex energy, and (re, im) pair exactly — an f64 CPU
     run, where the device quotient arithmetic equals the host check's.
     wavemax=1 also routes the lower-state stores through the batch env."""
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     run_dir.check_output_dir("test")
@@ -308,8 +308,8 @@ def test_split_restart_from_disk(tmp_run, monkeypatch):
     (reference: src/grid.rs:60-100, src/input.rs:487-505)."""
     import shutil
 
-    from wafer_tpu.io import run_dir as rd
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.io import run_dir as rd
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     cfg = _split_cfg(wavemax=1, output={"save_wavefns": True})
@@ -337,8 +337,8 @@ def test_split_resume_current_state_from_partial(tmp_run, monkeypatch):
     over the stored lower state (reference: src/grid.rs:60-85)."""
     import shutil
 
-    from wafer_tpu.io import run_dir as rd
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.io import run_dir as rd
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     cfg = _split_cfg(wavemax=1, output={"save_wavefns": True, "snap_update": 100})
@@ -361,135 +361,3 @@ def test_split_resume_current_state_from_partial(tmp_run, monkeypatch):
     assert results2[0].steps <= results[1].steps
 
 
-def test_split_pallas_dispatch_resident_and_k2(tmp_run, monkeypatch):
-    """_solve_split's pallas dispatch: resident (re,im) kernel for the
-    ground state, and the K=2 fused path when residency is gated off —
-    both must match the XLA split path (interpret mode, backend spoofed)."""
-    import functools
-
-    import jax
-
-    from wafer_tpu.ops import pallas_split as ps, split_complex as sc
-
-    common = dict(
-        precision="f32",
-        potential="ComplexHarmonic",
-        absorb=0.2,
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.25, "dt": 0.01},
-        tolerance=1e-5,
-        init_condition="Gaussian",
-        output={"screen_update": 50, "file_type": "Json"},
-        max_steps=20000,
-    )
-    run_dir.check_output_dir("test")
-    monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
-
-    cfg_x = base_config(**common)
-    cfg_x.backend = "xla"
-    ref = solver.run(cfg_x, seed=5)
-    e_ref = ref[0].observables.energy / ref[0].observables.norm2
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for fn in (
-        "evolve_chunk_fused_sc",
-        "evolve_chunk_resident_sc",
-        "evolve_chunk_resident_mixed_sc",
-        "evolve_chunk_fused_k_sc",
-    ):
-        monkeypatch.setattr(
-            ps, fn, functools.partial(getattr(ps, fn), interpret=True)
-        )
-    orig_step = ps.evolve_step_fused_sc
-
-    def step_interp(*a, **k):
-        # interpret is the 8th positional arg in the chunk drivers
-        if len(a) >= 8:
-            a = a[:7] + (True,) + a[8:]
-        else:
-            k["interpret"] = True
-        return orig_step(*a, **k)
-
-    monkeypatch.setattr(ps, "evolve_step_fused_sc", step_interp)
-
-    # resident dispatch
-    cfg_r = base_config(**common)
-    out_r = solver.run(cfg_r, seed=5)
-    e_r = out_r[0].observables.energy / out_r[0].observables.norm2
-    assert abs(e_r - e_ref) < 2e-4, (e_ref, e_r)
-
-    # K=2 dispatch (whole-pair residency AND mixed residency gated off —
-    # without the second gate the mixed kernel silently takes this branch)
-    monkeypatch.setattr(ps, "resident_sc_supported", lambda *a: False)
-    monkeypatch.setattr(ps, "pick_tx_mixed_sc", lambda *a, **k: None)
-    cfg_k = base_config(**common)
-    out_k = solver.run(cfg_k, seed=5)
-    e_k = out_k[0].observables.energy / out_k[0].observables.norm2
-    assert abs(e_k - e_ref) < 2e-4, (e_ref, e_k)
-
-
-def test_split_pallas_dispatch_mixed_streamed_b(tmp_run, monkeypatch):
-    """Non-analytic complex potentials (ComplexFullCornell — no in-kernel
-    B formula) dispatch to the STREAMED-B mixed-residency kernel when the
-    pair exceeds whole-array residency: re resident, im + (Br, Bi) windows
-    streamed. Must match the XLA split path (interpret, backend spoofed)."""
-    import functools
-
-    import jax
-
-    from wafer_tpu.ops import pallas_split as ps, split_complex as sc
-
-    common = dict(
-        precision="f32",
-        potential="ComplexFullCornell",
-        absorb=0.2,
-        mass=4.65,
-        sig=0.223,
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.25, "dt": 0.01},
-        tolerance=1e-5,
-        init_condition="Gaussian",
-        output={"screen_update": 50, "file_type": "Json"},
-        max_steps=20000,
-    )
-    run_dir.check_output_dir("test")
-    monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
-
-    cfg_x = base_config(**common)
-    cfg_x.backend = "xla"
-    ref = solver.run(cfg_x, seed=5)
-    e_ref = ref[0].observables.energy / ref[0].observables.norm2
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # force past whole-pair residency so the mixed plan is the dispatch
-    monkeypatch.setattr(ps, "resident_sc_supported", lambda *a: False)
-    for fn in ("evolve_chunk_fused_sc", "evolve_chunk_fused_k_sc"):
-        monkeypatch.setattr(
-            ps, fn, functools.partial(getattr(ps, fn), interpret=True)
-        )
-    orig_step = ps.evolve_step_fused_sc
-
-    def step_interp(*a, **k):
-        # interpret is the 8th positional arg in the chunk drivers
-        if len(a) >= 8:
-            a = a[:7] + (True,) + a[8:]
-        else:
-            k["interpret"] = True
-        return orig_step(*a, **k)
-
-    monkeypatch.setattr(ps, "evolve_step_fused_sc", step_interp)
-    calls = []
-    orig_mixed = ps.evolve_chunk_resident_mixed_sc
-
-    def mixed_interp(*a, **k):
-        calls.append((a[6] if len(a) > 6 else k.get("analytic"),
-                      k.get("b2") is not None))
-        k["interpret"] = True
-        return orig_mixed(*a, **k)
-
-    monkeypatch.setattr(ps, "evolve_chunk_resident_mixed_sc", mixed_interp)
-
-    cfg_m = base_config(**common)
-    out_m = solver.run(cfg_m, seed=5)
-    e_m = out_m[0].observables.energy / out_m[0].observables.norm2
-    assert abs(e_m - e_ref) < 2e-4 * max(1.0, abs(e_ref)), (e_ref, e_m)
-    assert calls, "streamed-B mixed kernel did not dispatch"
-    assert all(an is None and has_b2 for an, has_b2 in calls), calls[:3]

@@ -1,10 +1,12 @@
 """Config schema, validation and enum semantics."""
 
+import os
+
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import errors
-from wafer_tpu.config import (
+from wavefarm import errors
+from wavefarm.config import (
     CentralDifference,
     Config,
     FileType,
@@ -18,7 +20,7 @@ def test_load_reference_schema(tmp_path):
     """Our example wafer.yaml (same schema as the reference's) parses."""
     import shutil
 
-    src = "/root/repo/wafer.yaml"
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "wafer.yaml")
     dst = tmp_path / "wafer.yaml"
     shutil.copy(src, dst)
     cfg = Config.load(str(dst), setup_output=False)

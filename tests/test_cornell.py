@@ -7,10 +7,10 @@ in GeV² (reference: src/potential.rs:241-269)."""
 import numpy as np
 
 from tests.conftest import base_config
-from wafer_tpu import geometry, solver
-from wafer_tpu.io import run_dir
-from wafer_tpu.models import potentials as pmod
-from wafer_tpu.ops import observables as obs_mod
+from wavefarm import geometry, solver
+from wavefarm.io import run_dir
+from wavefarm.models import potentials as pmod
+from wavefarm.ops import observables as obs_mod
 
 
 def _cornell_cfg(pot, **over):
@@ -34,7 +34,7 @@ def test_full_cornell_observables_array_pot_sub():
     cfg = _cornell_cfg("FullCornell")
     import jax.numpy as jnp
 
-    from wafer_tpu.models.potentials import Potentials
+    from wavefarm.models.potentials import Potentials
 
     v = pmod.generate(cfg)
     sub = pmod.potential_sub_array(cfg)
@@ -88,7 +88,7 @@ def test_cornell_restart_from_snapshot(tmp_run):
         max_steps=200,  # force an early abort mid-convergence
     )
     run_dir.check_output_dir(cfg.project_name)
-    from wafer_tpu import errors
+    from wavefarm import errors
 
     import pytest
 

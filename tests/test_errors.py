@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import errors
-from wafer_tpu.config import Config, FileType
-from wafer_tpu.io import formats, readers
-from wafer_tpu.models import potentials as pmod
+from wavefarm import errors
+from wavefarm.config import Config, FileType
+from wavefarm.io import formats, readers
+from wavefarm.models import potentials as pmod
 
 LOG = logging.getLogger("test")
 
@@ -80,8 +80,8 @@ def test_script_missing_location():
 
 
 def test_script_spawn_failure(tmp_run):
-    from wafer_tpu.config import Grid, Index3
-    from wafer_tpu.io import script as script_io
+    from wavefarm.config import Grid, Index3
+    from wavefarm.io import script as script_io
 
     grid = Grid(size=Index3(2, 2, 2), dn=0.1, dt=1e-3)
     with pytest.raises(errors.SpawnScriptError):
@@ -104,8 +104,8 @@ def test_halo_narrower_than_block():
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
-    from wafer_tpu.parallel.mesh import make_mesh
-    from wafer_tpu.parallel.sharded import ShardedOps
+    from wavefarm.parallel.mesh import make_mesh
+    from wavefarm.parallel.sharded import ShardedOps
 
     cfg = base_config(
         central_difference="SevenPoint",

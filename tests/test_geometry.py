@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from wafer_tpu import geometry
+from wavefarm import geometry
 
 
 def test_work_area_dims():

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.conftest import base_config
-from wafer_tpu.models import initial
+from wavefarm.models import initial
 
 
 def test_constant_ic():
@@ -133,7 +133,7 @@ def test_symmetrise_keeps_dirichlet_halo_zero():
         )
         rng = np.random.default_rng(ext)
         w = rng.normal(size=cfg.padded_size())
-        from wafer_tpu import geometry
+        from wavefarm import geometry
 
         w = np.asarray(geometry.zero_boundary(jnp.asarray(w), ext))
         out = np.asarray(initial.symmetrise_wavefunction(cfg, jnp.asarray(w)))
@@ -173,7 +173,7 @@ def test_exact_clone_gram_schmidt_cancels_to_zero():
     an EXACT clone cancels bitwise to the zero array whenever the norm
     scale and the overlap round to the same f32 (here both are exactly 1),
     which zeroes the excited-state seed (observed on the 256³ north star)."""
-    from wafer_tpu.ops import gram_schmidt
+    from wavefarm.ops import gram_schmidt
 
     cfg = base_config()
     w = jnp.zeros(cfg.padded_size(), jnp.float32).at[5, 5, 5].set(1.0)
@@ -186,7 +186,7 @@ def test_perturb_clone_survives_gram_schmidt():
     """perturb_clone's seed leaves a non-zero residual after the chunk
     head's normalise+orthogonalise — the regression for the 256³ S=2
     collapse (solver._select_initial_condition memory fallback)."""
-    from wafer_tpu.ops import gram_schmidt
+    from wavefarm.ops import gram_schmidt
 
     cfg = base_config()
     w = jnp.zeros(cfg.padded_size(), jnp.float32).at[5, 5, 5].set(1.0)

@@ -3,15 +3,17 @@
 import logging
 import os
 import stat
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import errors
-from wafer_tpu.config import FileType
-from wafer_tpu.io import formats, readers, run_dir, script as script_io, writers
-from wafer_tpu.io.trilerp import trilerp_resize
+from wavefarm import errors
+from wavefarm.config import FileType
+from wavefarm.io import formats, readers, run_dir, script as script_io, writers
+from wavefarm.io.trilerp import trilerp_resize
 
 LOG = logging.getLogger("test")
 
@@ -300,7 +302,7 @@ def test_script_potential_contract(tmp_run):
         "            print(i * 100 + j * 10 + k)\n"
     )
     script.chmod(script.stat().st_mode | stat.S_IEXEC)
-    from wafer_tpu.config import Grid, Index3
+    from wavefarm.config import Grid, Index3
 
     grid = Grid(size=Index3(3, 3, 3), dn=0.1, dt=1e-3)
     v = script_io.script_potential(str(script), grid, 2, LOG)
@@ -314,8 +316,46 @@ def test_script_potential_bad_output(tmp_run):
     script = tmp_run / "bad.py"
     script.write_text("#!/usr/bin/env python\nprint('not-a-float')\n")
     script.chmod(script.stat().st_mode | stat.S_IEXEC)
-    from wafer_tpu.config import Grid, Index3
+    from wavefarm.config import Grid, Index3
 
     grid = Grid(size=Index3(2, 2, 2), dn=0.1, dt=1e-3)
     with pytest.raises(errors.ParseFloatError):
         script_io.script_potential(str(script), grid, 2, LOG)
+
+
+_NO_PACKAGES = r"""
+import sys
+sys.modules["yaml"] = None
+sys.modules["msgpack"] = None
+import glob
+import numpy as np
+from wavefarm.config import Config
+from wavefarm.io import formats
+
+for path in ["wafer.yaml"] + sorted(glob.glob("examples/*.yaml")):
+    Config.load(path, setup_output=False)
+arr = np.linspace(-1.0, 1.0, 24).reshape(2, 3, 4)
+for to, frm in [(formats.array_to_json, formats.array_from_json),
+                (formats.array_to_yaml, formats.array_from_yaml),
+                (formats.array_to_mpk, formats.array_from_mpk),
+                (formats.array_to_ron, formats.array_from_ron),
+                (formats.array_to_csv, formats.array_from_csv)]:
+    assert np.array_equal(frm(to(arr)), arr), to.__name__
+    assert np.array_equal(frm(to(arr * 1j)), arr * 1j), to.__name__
+obs = {"state": 0, "energy": 1.5, "binding_energy": 1.5, "r": 3.0, "l_r": 5.0}
+for ft in ("Json", "Yaml", "Ron", "Csv", "Messagepack"):
+    assert formats.observables_from(ft, formats.observables_to(ft, obs)) == obs, ft
+    assert formats.sub_from_text(ft, formats.sub_single_to(ft, 2.5))[1] == 2.5, ft
+print("ok")
+"""
+
+
+def test_main_path_without_pyyaml_or_msgpack():
+    """With yaml and msgpack unimportable, every shipped config loads and
+    the five output formats round-trip."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_PACKAGES], cwd=root, capture_output=True,
+        text=True, timeout=300, env=dict(os.environ, JAX_PLATFORMS="cpu"),
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

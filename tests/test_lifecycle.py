@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import solver
-from wafer_tpu.config import FileType
-from wafer_tpu.io import readers, run_dir, writers
+from wavefarm import solver
+from wavefarm.config import FileType
+from wavefarm.io import readers, run_dir, writers
 
 LOG = logging.getLogger("test")
 
@@ -49,7 +49,7 @@ def test_save_wavefns_and_potential(tmp_run):
     assert os.path.exists(d + "/potential.csv")
     assert os.path.exists(d + "/observables_0.csv")
     # saved wavefunction is the work area (16³)
-    from wafer_tpu.io import formats
+    from wavefarm.io import formats
 
     with open(d + "/wavefunction_0.csv") as fh:
         w = formats.array_from_csv(fh.read())
@@ -89,7 +89,7 @@ def test_excited_state_restart_from_disk(tmp_run):
 
 
 def test_restart_missing_lower_state_errors(tmp_run):
-    from wafer_tpu import errors
+    from wavefarm import errors
 
     cfg = _small_harmonic(wavenum=1, wavemax=1)
     run_dir.check_output_dir(cfg.project_name)
@@ -99,8 +99,8 @@ def test_restart_missing_lower_state_errors(tmp_run):
 
 def test_from_file_potential(tmp_run):
     """FromFile potential path (reference: src/potential.rs:79-86)."""
-    from wafer_tpu.io import formats
-    from wafer_tpu.models import potentials as pmod
+    from wavefarm.io import formats
+    from wavefarm.models import potentials as pmod
 
     # write a harmonic potential (work size) to input/, then solve FromFile
     cfg_gen = _small_harmonic()
@@ -167,7 +167,7 @@ def test_cli_end_to_end(tmp_run, capsys):
     with open("test.yaml", "w") as fh:
         yaml.safe_dump(raw, fh)
 
-    from wafer_tpu import cli
+    from wavefarm import cli
 
     rc = cli.main(["-c", "test.yaml"])
     assert rc == 0
@@ -212,7 +212,7 @@ def test_cli_mesh_multigrid_dispatch(tmp_run, capsys):
     with open("test.yaml", "w") as fh:
         yaml.safe_dump(raw, fh)
 
-    from wafer_tpu import cli
+    from wavefarm import cli
 
     rc = cli.main(["-c", "test.yaml", "-d"])
     assert rc == 0
@@ -227,7 +227,7 @@ def test_cli_mesh_multigrid_dispatch(tmp_run, capsys):
 def test_cli_bad_config(tmp_run, capsys):
     with open("bad.yaml", "w") as fh:
         fh.write("project_name: x\n")  # missing everything else
-    from wafer_tpu import cli
+    from wavefarm import cli
 
     rc = cli.main(["-c", "bad.yaml"])
     assert rc == 1
@@ -240,7 +240,7 @@ def test_snapshot_keeps_live_psi_normalised(tmp_run):
     ψ keeps unit norm, so later Gram-Schmidt projections stay exact and f32
     convergence is free of scale oscillation. The written ``_partial`` file
     carries the reference's rescale (checked via the spy below)."""
-    from wafer_tpu.io import writers
+    from wavefarm.io import writers
 
     written = {}
     orig = writers.wavefunction
@@ -298,7 +298,7 @@ def test_snapshot_symmetrisation_reenforced_during_evolution(tmp_run):
     # at the break ψ was just symmetrised; the antisym projector flips the
     # overall sign of an already-antisymmetric state (P∘P = −P), so the
     # fixed point satisfies symmetrise(ψ) = −ψ
-    from wafer_tpu.models import initial as init_mod
+    from wavefarm.models import initial as init_mod
 
     sym = np.asarray(init_mod.symmetrise_wavefunction(cfg, res.phi))
     assert np.allclose(w, -sym, atol=2e-5 * np.abs(w).max())

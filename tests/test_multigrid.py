@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import errors, solver
-from wafer_tpu.io import run_dir
+from wavefarm import errors, solver
+from wavefarm.io import run_dir
 
 
 def _mg_cfg(**over):
@@ -89,7 +89,7 @@ def test_multigrid_intermediate_levels_write_no_wavefunctions(tmp_run):
 def test_multigrid_split_complex(tmp_run, monkeypatch):
     """Multigrid on the split-complex path: the (re, im) pair upsamples
     componentwise and converges to the complex-harmonic oracle."""
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     run_dir.check_output_dir("test")
@@ -140,7 +140,7 @@ def test_multigrid_sharded_final_level(tmp_run):
 def test_multigrid_sharded_split_complex(tmp_run, monkeypatch):
     """Multigrid hand-over into the sharded split-complex driver: the
     upsampled (re, im) pair seeds the final sharded level."""
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     run_dir.check_output_dir("test")
@@ -165,8 +165,8 @@ def test_multigrid_from_file_potential(tmp_run):
     with every potential source."""
     import jax.numpy as jnp
 
-    from wafer_tpu.io import formats
-    from wafer_tpu.models import potentials as pmod
+    from wavefarm.io import formats
+    from wavefarm.models import potentials as pmod
 
     run_dir.check_output_dir("test")
     cfg = _mg_cfg(
@@ -197,7 +197,7 @@ def test_upsample_state_shape_and_boundary():
     the target config's symmetry constraint on the fine grid."""
     import jax.numpy as jnp
 
-    from wafer_tpu.models import initial
+    from wavefarm.models import initial
 
     cfg_plain = _mg_cfg()
     ext = cfg_plain.central_difference.ext

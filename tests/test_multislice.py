@@ -1,10 +1,9 @@
-"""Multi-slice (DCN-tier) decomposition on the virtual 8-CPU mesh.
+"""Multi-slice (inter-node) decomposition on the virtual 8-CPU mesh.
 
-Emulates SURVEY §2's "DCN for multi-slice 512³+ runs" tier as
-2 slices × (2, 2, 1) (and 2 × (1, 2, 2)) and asserts equivalence against
-the flat single-slice sharded path — the deep-window slice cadence must be
-trajectory-equivalent to per-step exchange (the blind ghost-zone argument
-of the deep-halo kernels, at the slice level)."""
+Emulates the multi-slice tier as 2 slices × (2, 2, 1) (and 2 × (1, 2, 2))
+and asserts equivalence against the flat single-slice sharded path — the
+deep-window slice cadence must be trajectory-equivalent to per-step
+exchange (the blind ghost-zone argument, at the slice level)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,12 +11,12 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import geometry
-from wafer_tpu.io import run_dir
-from wafer_tpu.models import potentials as pmod
-from wafer_tpu.parallel import make_mesh
-from wafer_tpu.parallel.multislice import MultiSliceOps, make_multislice_mesh
-from wafer_tpu.parallel.sharded import ShardedOps
+from wavefarm import geometry
+from wavefarm.io import run_dir
+from wavefarm.models import potentials as pmod
+from wavefarm.parallel import make_mesh
+from wavefarm.parallel.multislice import MultiSliceOps, make_multislice_mesh
+from wavefarm.parallel.sharded import ShardedOps
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -50,7 +49,7 @@ def test_multislice_evolve_matches_flat_sharded(order):
     a_int = geometry.work_area(a, ext)
     b_int = geometry.work_area(b, ext)
 
-    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 0, use_pallas=False)
+    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 0)
     ref = np.asarray(flat.get(flat.evolve_chunk(
         flat.put(phi_int), flat.put(a_int), flat.put(b_int),
         flat.put_store(None),
@@ -72,7 +71,7 @@ def test_multislice_remainder_and_deeper_window():
     cfg, ext, phi_int, v, a, b = _setup(su=7, slice_update=3)
     a_int = geometry.work_area(a, ext)
     b_int = geometry.work_area(b, ext)
-    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 0, use_pallas=False)
+    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 0)
     ref = np.asarray(flat.get(flat.evolve_chunk(
         flat.put(phi_int), flat.put(a_int), flat.put(b_int),
         flat.put_store(None),
@@ -90,7 +89,7 @@ def test_multislice_measure_matches_flat():
     cfg, ext, phi_int, v, a, b = _setup()
     v_int = geometry.work_area(v, ext)
     r2 = geometry.r2_index_grid(cfg.work_size(), cfg.grid.size.as_tuple())
-    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 0, use_pallas=False,
+    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 0,
                       pot_sub_scalar=2.5)
     (e_r, n_r, vi_r, r2_r), _ = flat.measure(
         flat.put(phi_int), flat.put(v_int), flat.put(r2),
@@ -118,7 +117,7 @@ def test_multislice_excited_matches_flat():
     lower /= np.sqrt(np.sum(lower ** 2))
     store = jnp.stack([jnp.asarray(lower)])
 
-    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 1, use_pallas=False)
+    flat = ShardedOps(cfg, make_mesh((4, 2, 1)), 1)
     ref = np.asarray(flat.get(flat.evolve_chunk(
         flat.put(phi_int), flat.put(a_int), flat.put(b_int),
         flat.put_store(store),
@@ -139,7 +138,7 @@ def test_multislice_yz_slice_factor():
     cfg, ext, phi_int, v, a, b = _setup()
     a_int = geometry.work_area(a, ext)
     b_int = geometry.work_area(b, ext)
-    flat = ShardedOps(cfg, make_mesh((2, 2, 2)), 0, use_pallas=False)
+    flat = ShardedOps(cfg, make_mesh((2, 2, 2)), 0)
     ref = np.asarray(flat.get(flat.evolve_chunk(
         flat.put(phi_int), flat.put(a_int), flat.put(b_int),
         flat.put_store(None),
@@ -155,7 +154,7 @@ def test_multislice_yz_slice_factor():
 def test_multislice_driver_end_to_end(tmp_run):
     """run_sharded with mesh.slices=2 converges to the harmonic oracle
     through the MultiSliceOps dispatch (blocked per-shard potentials)."""
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     cfg = base_config(
         grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
@@ -173,7 +172,7 @@ def test_multislice_driver_end_to_end(tmp_run):
 
 
 def test_multislice_config_validation():
-    from wafer_tpu import errors
+    from wavefarm import errors
 
     with pytest.raises(errors.ConfigParseError):
         base_config(mesh={"x": 1, "y": 1, "z": 1, "slices": 0})
@@ -183,72 +182,12 @@ def test_multislice_config_validation():
     assert cfg.mesh.n_devices == 8 and cfg.mesh.slice_update == 4
 
 
-def test_multislice_split_flat_ring_pinned_window():
-    """Split-complex DCN tier: a 2-slice × (2,1,1) factorisation rides the
-    flat process-major x-ring with the pair-resident exchange window pinned
-    to slice_update — equal to the single-mesh XLA split path (interpret
-    kernels). The pin is observable: the auto ladder's recompute cap would
-    refuse R=2 at bx=2, the forced pin accepts it (DCN cadence wins the
-    trade at slice boundaries)."""
-    from wafer_tpu.models import potentials as pmod2
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg = base_config(
-        precision="f32",
-        potential="ComplexHarmonic",
-        absorb=0.2,
-        grid={"size": {"x": 32, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.004},
-        output={"screen_update": 9},
-        mesh={"x": 2, "y": 1, "z": 1, "slices": 2, "slice_update": 4},
-    )
-    ext = cfg.central_difference.ext
-    rng = np.random.default_rng(73)
-    pr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    pi = rng.normal(size=cfg.work_size()).astype(np.float32)
-    vr, vi = pmod2.generate_split(cfg)
-    ar, ai, br, bi = pmod2.build_ab_split(
-        vr.astype(jnp.float32), vi.astype(jnp.float32), cfg.grid.dt
-    )
-    w = geometry.work_area
-    ar, ai, br, bi = w(ar, ext), w(ai, ext), w(br, ext), w(bi, ext)
-
-    ops_x = ShardedSplitOps(cfg, make_mesh((4, 1, 1)), 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-
-    hier = make_multislice_mesh((2, 1, 1), 2)
-    flat = make_mesh((4, 1, 1), devices=list(hier.devices.flatten()))
-    auto = ShardedSplitOps(
-        cfg, flat, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert auto.sc_res_steps != 4  # the auto recompute cap refuses R=4 at bx=8
-    ops_p = ShardedSplitOps(
-        cfg, flat, 0, use_pallas=True, pallas_interpret=True,
-        res_steps=cfg.mesh.slice_update,
-    )
-    assert ops_p.sc_res_steps == 4, ops_p.sc_res_steps
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri),
-                               rtol=2e-5, atol=2e-6)
-
-
 def test_multislice_split_driver_end_to_end(tmp_run, monkeypatch):
-    """run_sharded_split with mesh.slices=2 (degenerate y/z) rides the flat
-    x-ring and converges to the complex absorptive-harmonic oracle; a
-    y/z-sharded slice factorisation is a typed config error on the split
-    path."""
-    from wafer_tpu import errors
-    from wafer_tpu.ops import split_complex as sc
-    from wafer_tpu.parallel.sharded_split import run_sharded_split
+    """run_sharded_split with mesh.slices=2 folds the slices into a flat
+    process-major mesh and converges to the complex absorptive-harmonic
+    oracle, for an x-only and a y-sharded slice factorisation."""
+    from wavefarm.ops import split_complex as sc
+    from wavefarm.parallel.sharded_split import run_sharded_split
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     common = dict(
@@ -261,78 +200,29 @@ def test_multislice_split_driver_end_to_end(tmp_run, monkeypatch):
         max_steps=100000,
     )
     run_dir.check_output_dir("test")
-    results = run_sharded_split(base_config(
-        mesh={"x": 2, "y": 1, "z": 1, "slices": 2, "slice_update": 4},
-        **common,
-    ))
-    e0 = results[0].observables.energy / results[0].observables.norm2
-    assert abs(e0 - (1.5 * (1 + 0.2j) ** 0.5)) < 0.05, e0
-    with pytest.raises(errors.ConfigParseError):
-        run_sharded_split(base_config(
-            mesh={"x": 1, "y": 2, "z": 1, "slices": 2}, **common,
-        ))
+    for mesh in ({"x": 2, "y": 1, "z": 1, "slices": 2, "slice_update": 4},
+                 {"x": 1, "y": 2, "z": 1, "slices": 2}):
+        results = run_sharded_split(base_config(mesh=mesh, **common))
+        e0 = results[0].observables.energy / results[0].observables.norm2
+        assert abs(e0 - (1.5 * (1 + 0.2j) ** 0.5)) < 0.05, (mesh, e0)
 
 
 def test_distributed_initialize_noop(monkeypatch):
     """Without coordinator env the jax.distributed entry is a no-op (the
     single-process path tests can exercise)."""
-    from wafer_tpu.parallel.distributed import maybe_initialize_distributed
+    from wavefarm.parallel.distributed import maybe_initialize_distributed
 
     monkeypatch.delenv("WAFER_COORDINATOR", raising=False)
     assert maybe_initialize_distributed() is False
 
 
-def test_flat_ring_disallows_in_kernel_ici():
-    """The multi-slice flat-ring shortcut must never select the in-kernel
-    remote-DMA exchange: Pallas RDMAs ride ICI links only, and the ring's
-    slice-crossing hop is DCN. allow_ici=False suppresses the gate even
-    where it would otherwise engage (both ops families); the pinned
-    deep-window ppermute cadence remains."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 32, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.004},
-        output={"screen_update": 8},
-        mesh={"x": 4, "y": 1, "z": 1},
-    )
-    flat = make_mesh((4, 1, 1))
-    ops_on = ShardedOps(
-        cfg, flat, 0, use_pallas=True, pallas_interpret=True, res_steps=2,
-    )
-    assert ops_on.ici_res, "gate should engage with allow_ici default"
-    ops_off = ShardedOps(
-        cfg, flat, 0, use_pallas=True, pallas_interpret=True, res_steps=2,
-        allow_ici=False,
-    )
-    assert not ops_off.ici_res and ops_off.res_steps == 2
-
-    ccfg = base_config(
-        precision="f32",
-        potential="ComplexHarmonic",
-        absorb=0.2,
-        grid={"size": {"x": 32, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.004},
-        output={"screen_update": 8},
-        mesh={"x": 4, "y": 1, "z": 1},
-    )
-    sops_on = ShardedSplitOps(
-        ccfg, flat, 0, use_pallas=True, pallas_interpret=True, res_steps=2,
-    )
-    assert sops_on.sc_ici, "split gate should engage with allow_ici default"
-    sops_off = ShardedSplitOps(
-        ccfg, flat, 0, use_pallas=True, pallas_interpret=True, res_steps=2,
-        allow_ici=False,
-    )
-    assert not sops_off.sc_ici and sops_off.sc_res_steps == 2
-
-
 def test_distributed_initialize_env_wiring(monkeypatch):
     """With coordinator env set, the entry passes the exact
     coordinator/num/pid trio to jax.distributed.initialize (the
-    multi-process launch contract for the DCN tier)."""
+    multi-process launch contract for the multi-slice tier)."""
     import jax
 
-    from wafer_tpu.parallel import distributed
+    from wavefarm.parallel import distributed
 
     calls = {}
 

@@ -5,8 +5,8 @@ import time
 import numpy as np
 import pytest
 
-from wafer_tpu import native
-from wafer_tpu.io import formats
+from wavefarm import native
+from wavefarm.io import formats
 
 
 @pytest.fixture(scope="module")
@@ -120,8 +120,8 @@ def test_csv_decode_fills_in_file_order():
     must agree with that and with the Python fallback for shuffled rows."""
     import numpy as np
 
-    from wafer_tpu import native
-    from wafer_tpu.io import formats
+    from wavefarm import native
+    from wavefarm.io import formats
 
     rows = [
         (0, 0, 1, 2.0), (0, 0, 0, 1.0), (0, 1, 0, 3.0), (0, 1, 1, 4.0),

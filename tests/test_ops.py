@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from tests.conftest import base_config
-from wafer_tpu import geometry
-from wafer_tpu.models import potentials as pmod
-from wafer_tpu.ops import gram_schmidt, observables as obs_mod, stencil
+from wavefarm import geometry
+from wavefarm.models import potentials as pmod
+from wavefarm.ops import gram_schmidt, observables as obs_mod, stencil
 
 
 def test_gram_schmidt_golden():
@@ -119,7 +119,7 @@ def test_observables_harmonic_constant_field():
     v = pmod.generate(cfg)
     phi = geometry.zero_boundary(jnp.full(cfg.padded_size(), 0.1), 1)
 
-    from wafer_tpu.models.potentials import Potentials
+    from wavefarm.models.potentials import Potentials
 
     pots = Potentials(v=v, a=v, b=v, pot_sub_array=None, pot_sub_scalar=None)
     obs = obs_mod.compute_observables(cfg, pots, phi)
@@ -145,7 +145,7 @@ def test_observables_harmonic_constant_field():
 
 def test_observables_pot_sub_scalar():
     cfg = base_config(potential="SimpleCornell", mass=2.0)
-    from wafer_tpu.models.potentials import Potentials
+    from wavefarm.models.potentials import Potentials
 
     v = pmod.generate(cfg)
     phi = geometry.zero_boundary(jnp.full(cfg.padded_size(), 0.1), 1)

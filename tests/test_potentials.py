@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import errors, geometry
-from wafer_tpu.models import potentials as pmod
+from wavefarm import errors, geometry
+from wavefarm.models import potentials as pmod
 
 
 def test_alphas_golden():
@@ -165,7 +165,7 @@ def test_complex_absorb():
 
 
 def test_complex_full_cornell_scaled_array():
-    """TPU extension: the absorptive finite-T quarkonium potential is
+    """Extension: the absorptive finite-T quarkonium potential is
     (1 + i·absorb)·FullCornell — the complex in-medium potential the
     reference's finite-T Cornell physics calls for but stubs as real
     (src/potential.rs:222,250-271)."""

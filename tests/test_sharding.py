@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import geometry
-from wafer_tpu.io import run_dir
-from wafer_tpu.models import initial, potentials as pmod
-from wafer_tpu.ops import stencil
-from wafer_tpu.parallel import halo, make_mesh
-from wafer_tpu.parallel.mesh import AXIS_NAMES
-from wafer_tpu.parallel.sharded import ShardedOps
+from wavefarm import geometry
+from wavefarm.io import run_dir
+from wavefarm.models import potentials as pmod
+from wavefarm.ops import stencil
+from wavefarm.parallel import halo, make_mesh
+from wavefarm.parallel.mesh import AXIS_NAMES
+from wavefarm.parallel.sharded import ShardedOps
 from jax.sharding import PartitionSpec as P
 
 pytestmark = pytest.mark.skipif(
@@ -51,16 +51,32 @@ def test_halo_exchange_matches_zero_padding():
         np.testing.assert_allclose(block, ref)
 
 
-@pytest.mark.parametrize("mesh_shape", [(8, 1, 1), (2, 2, 2), (1, 4, 2)])
-@pytest.mark.parametrize("order", ["ThreePoint", "FivePoint", "SevenPoint"])
-def test_sharded_evolve_matches_single_device(mesh_shape, order):
-    """Bit-level agreement between the sharded sweep and the padded
-    single-device sweep. Grid sized so every block is at least ext wide."""
+# the first three are the meshes of the original ground-state cases
+_MESHES = [(8, 1, 1), (2, 2, 2), (1, 4, 2), (2, 1, 1), (4, 1, 1), (1, 2, 1),
+           (1, 1, 2), (2, 2, 1)]
+
+
+def _orthonormal_store(rng, shape, n_lower):
+    """``n_lower`` random orthonormal interior fields (float64)."""
+    out = []
+    for _ in range(n_lower):
+        s = rng.normal(size=shape)
+        for l in out:
+            s = s - l * np.sum(l * s)
+        out.append(s / np.sqrt(np.sum(s * s)))
+    return out
+
+
+def _check_sharded_evolve(mesh_shape, order, n_lower):
+    """The sharded XLA chunk (halo exchange, psum'd per-step normalise and
+    Gram-Schmidt for excited states) agrees with the padded single-device
+    chunk to f64 rounding. Grid sized so every block is at least ext
+    wide."""
     n = 16 if order == "ThreePoint" else 24
     cfg = base_config(
         central_difference=order,
         grid={"size": {"x": n, "y": n, "z": n}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 7},
+        output={"screen_update": 3},
     )
     ext = cfg.central_difference.ext
     rng = np.random.default_rng(1)
@@ -69,23 +85,47 @@ def test_sharded_evolve_matches_single_device(mesh_shape, order):
     )
     v = pmod.generate(cfg)
     a, b = pmod.build_ab(v, cfg.grid.dt)
+    lowers = _orthonormal_store(rng, cfg.work_size(), n_lower)
+    store_pad = (
+        jnp.stack([geometry.frame_with_halo(jnp.asarray(l), ext) for l in lowers])
+        if n_lower else None
+    )
 
     # single-device padded path
     ref = stencil.evolve_chunk(
-        phi_pad, a, b, None, order, cfg.grid.dt, cfg.grid.dn, cfg.mass, 7, 0
+        phi_pad, a, b, store_pad, order, cfg.grid.dt, cfg.grid.dn, cfg.mass,
+        3, n_lower,
     )
     ref_int = np.asarray(geometry.work_area(ref, ext))
 
     # sharded interior path
-    mesh = make_mesh(mesh_shape)
-    ops = ShardedOps(cfg, mesh, 0)
-    phi_int = ops.put(geometry.work_area(phi_pad, ext))
+    ops = ShardedOps(cfg, make_mesh(mesh_shape), n_lower)
     out = ops.evolve_chunk(
-        phi_int, ops.put(geometry.work_area(a, ext)), ops.put(geometry.work_area(b, ext)),
-        ops.put_store(None),
+        ops.put(geometry.work_area(phi_pad, ext)),
+        ops.put(geometry.work_area(a, ext)),
+        ops.put(geometry.work_area(b, ext)),
+        ops.put_store(jnp.stack([jnp.asarray(l) for l in lowers]) if n_lower else None),
     )
     # ops.get undoes the layout permutation (sorted-by-shard-count perm)
-    np.testing.assert_allclose(np.asarray(ops.get(out)), ref_int, rtol=1e-13, atol=1e-15)
+    np.testing.assert_allclose(
+        np.asarray(ops.get(out)), ref_int, rtol=1e-12, atol=1e-13
+    )
+
+
+@pytest.mark.parametrize("mesh_shape", _MESHES)
+@pytest.mark.parametrize("order", ["ThreePoint", "FivePoint", "SevenPoint"])
+def test_sharded_evolve_matches_single_device(mesh_shape, order):
+    """Ground-state chunk: sharded == single device on every mesh shape."""
+    _check_sharded_evolve(mesh_shape, order, 0)
+
+
+@pytest.mark.parametrize("n_lower", [1, 2])
+@pytest.mark.parametrize("mesh_shape", _MESHES)
+@pytest.mark.parametrize("order", ["ThreePoint", "FivePoint", "SevenPoint"])
+def test_sharded_excited_evolve_matches_single_device(mesh_shape, order, n_lower):
+    """Excited chunk (per-step normalise + projection against ``n_lower``
+    stored states): sharded == single device on every mesh shape."""
+    _check_sharded_evolve(mesh_shape, order, n_lower)
 
 
 def test_sharded_measure_matches_single_device():
@@ -98,8 +138,8 @@ def test_sharded_measure_matches_single_device():
         jnp.asarray(rng.normal(size=cfg.padded_size())), ext
     )
     v = pmod.generate(cfg)
-    from wafer_tpu.models.potentials import Potentials
-    from wafer_tpu.ops import observables as obs_mod
+    from wavefarm.models.potentials import Potentials
+    from wavefarm.ops import observables as obs_mod
 
     pots = Potentials(v=v, a=v, b=v, pot_sub_array=None, pot_sub_scalar=2.5)
     obs_ref = obs_mod.compute_observables(cfg, pots, phi_pad)
@@ -146,7 +186,7 @@ def test_sharded_excited_state_orthogonality():
 
 def test_sharded_solver_end_to_end(tmp_run):
     """Full sharded harmonic run converges to the oracle on a 2×2×2 mesh."""
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     cfg = base_config(
         grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
@@ -169,7 +209,7 @@ def test_put_blocks_matches_put(mesh_shape):
     (VERDICT r4 #6): potential V, derived A/B, r², and FullCornell's
     indexed pot_sub array, including through the layout permutation of a
     y-leading mesh."""
-    from wafer_tpu.models.potentials import (
+    from wavefarm.models.potentials import (
         build_ab, generate, potential_sub_array,
     )
 
@@ -226,12 +266,11 @@ def test_put_blocks_matches_put(mesh_shape):
 
 
 def test_sharded_driver_honours_backend_key(tmp_run):
-    """The backend key must not be silently ignored on the sharded paths
-    (regression — same ignored-key class as seed/sync_update): xla forces
-    the shifted-slice sweep and still converges; pallas raises the typed
-    error on a CPU backend, matching solver._resolve_backend."""
-    from wafer_tpu import errors
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    """The backend key is honoured on the sharded paths: xla runs the
+    shifted-slice sweep and converges; pallas, whose kernels were removed,
+    is a typed config error."""
+    from wavefarm import errors
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     common = dict(
         grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
@@ -252,9 +291,9 @@ def test_sharded_driver_honours_backend_key(tmp_run):
 
 def test_sharded_split_driver_honours_backend_key(tmp_run, monkeypatch):
     """Split-sharded twin of the backend-key regression test."""
-    from wafer_tpu import errors
-    from wafer_tpu.ops import split_complex as sc
-    from wafer_tpu.parallel.sharded_split import run_sharded_split
+    from wavefarm import errors
+    from wavefarm.ops import split_complex as sc
+    from wavefarm.parallel.sharded_split import run_sharded_split
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     common = dict(
@@ -273,70 +312,6 @@ def test_sharded_split_driver_honours_backend_key(tmp_run, monkeypatch):
     assert abs(e0 - (1.5 * (1 + 0.2j) ** 0.5)) < 0.05, e0
     with pytest.raises(errors.ConfigParseError):
         run_sharded_split(base_config(backend="pallas", **common))
-
-
-def test_sharded_pallas_matches_sharded_xla():
-    """Fused-kernel shards (x-only mesh) == XLA shards, interpret mode."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 8, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(7)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int), ops_x.put_store(None)
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int), ops_p.put_store(None)
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_pallas_excited_matches_xla():
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 8, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 2},
-    )
-    ext = 1
-    rng = np.random.default_rng(8)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-    store = jnp.stack([jnp.asarray(lower)])
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int), ops_x.put_store(store)
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int), ops_p.put_store(store)
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (2, 2, 2)])
@@ -373,254 +348,10 @@ def test_sharded_per_step_norm_matches_single_device(mesh_shape):
     np.testing.assert_allclose(np.asarray(ops.get(out)), ref_int, rtol=1e-12, atol=1e-14)
 
 
-def test_sharded_pallas_analytic_cornell_with_shift():
-    """Analytic-B shards for SimpleCornell with the v_min gauge shift: the
-    in-kernel coordinate B must match the caller's shifted B arrays."""
-    cfg = base_config(
-        precision="f32",
-        potential="SimpleCornell",
-        mass=4.65,
-        sig=0.223,
-        grid={"size": {"x": 8, "y": 8, "z": 128}, "dn": 0.35, "dt": 0.04},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(9)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    v_min = float(jnp.min(v))
-    a, b = pmod.build_ab(v, cfg.grid.dt, v_min)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int), ops_x.put_store(None)
-        )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True, v_shift=v_min
-    )
-    assert ops_p.analytic is not None and ops_p.analytic[0] == "SimpleCornell"
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int), ops_p.put_store(None)
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("mesh_shape", [(4, 1, 1), (8, 1, 1)])
-def test_sharded_k_fused_matches_sharded_xla(mesh_shape):
-    """K=2 temporal blocking under shard_map (K·ext-wide halo exchange per
-    fused call) == the XLA sharded sweep, analytic-B, interpret mode."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 4},
-    )
-    ext = 1
-    rng = np.random.default_rng(11)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int), ops_x.put_store(None)
-        )
-    )
-    # force K=2 on these deliberately tiny blocks (the cost model would
-    # decline fusion at this scale — correctness is what's under test)
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True, k_fuse=2
-    )
-    assert ops_p.k_fuse >= 2, ops_p.k_fuse
-    assert ops_p.analytic is not None
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int), ops_p.put_store(None)
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_k_fused_streamed_b():
-    """K=2 sharded with a non-analytic potential: B's (K−1)·ext neighbour
-    rows must be exchanged too (zero-padding them would corrupt the
-    intermediate step at shard seams)."""
-    cfg = base_config(
-        precision="f32",
-        potential="QuadWell",
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 4},
-    )
-    ext = 1
-    rng = np.random.default_rng(12)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int), ops_x.put_store(None)
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.k_fuse >= 2 and ops_p.analytic is None
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int), ops_p.put_store(None)
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("with_analytic", [False, True])
-def test_sharded_zt_kernel_matches_sharded_xla(monkeypatch, with_analytic):
-    """The z-tiled kernel variant on x-sharded blocks (plain picker forced
-    off, as on ≥512² planes) == the XLA sharded sweep; both streamed-B and
-    analytic-B gating paths."""
-    from wafer_tpu.ops import pallas_stencil as pk
-
-    monkeypatch.setattr(pk, "_pick_tx", lambda *a, **k: None)
-    monkeypatch.setattr(pk, "_pick_tx_k", lambda *a, **k: None)  # force 1-step zt
-    monkeypatch.setattr(pk, "_pick_tx_zt", lambda *a, **k: (2, 128))
-
-    cfg = base_config(
-        precision="f32",
-        potential="Harmonic" if with_analytic else "QuadWell",
-        grid={"size": {"x": 16, "y": 8, "z": 256}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(13)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int), ops_x.put_store(None)
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.k_fuse == 1
-    assert (ops_p.analytic is not None) == with_analytic
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int), ops_p.put_store(None)
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize(
-    "mesh_shape,size",
-    [
-        ((1, 4, 1), {"x": 8, "y": 16, "z": 128}),
-        ((1, 1, 4), {"x": 8, "y": 128, "z": 16}),
-    ],
-)
-def test_sharded_pallas_transposed_yz_mesh(mesh_shape, size):
-    """Single-axis y/z meshes ride the fused-kernel ladder via the
-    transposed layout (sharded axis leading); equivalence vs the XLA
-    sharded sweep, interpret mode, incl. K=2 blocking."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": size, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 4},
-    )
-    ext = 1
-    rng = np.random.default_rng(17)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.get(
-            ops_x.evolve_chunk(
-                ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-                ops_x.put_store(None),
-            )
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.k_fuse >= 2 and ops_p.analytic is not None
-    out = np.asarray(
-        ops_p.get(
-            ops_p.evolve_chunk(
-                ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-                ops_p.put_store(None),
-            )
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_transposed_excited_matches_xla():
-    """Transposed y-sharded mesh, one stored state through the fused
-    carried-coefficient path."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 8, "y": 16, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(18)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-    store = jnp.stack([jnp.asarray(lower)])
-
-    mesh = make_mesh((1, 4, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.get(
-            ops_x.evolve_chunk(
-                ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-                ops_x.put_store(store),
-            )
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    out = np.asarray(
-        ops_p.get(
-            ops_p.evolve_chunk(
-                ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-                ops_p.put_store(store),
-            )
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=2e-5)
-
-
 def test_sharded_solver_end_to_end_y_mesh(tmp_run):
     """Full sharded run over a y-only mesh (transposed layout end-to-end,
     incl. snapshots and the host get/put boundary)."""
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     cfg = base_config(
         grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},
@@ -653,8 +384,8 @@ def test_sharded_split_complex_matches_single_device(tmp_run, monkeypatch):
     result (complex arrays never reach the device)."""
     import cmath
 
-    from wafer_tpu import solver
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm import solver
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     common = dict(
@@ -684,8 +415,8 @@ def test_sharded_split_full_cornell_pot_sub_array(tmp_run, monkeypatch):
     the sharded measure (binding = E − ⟨pot_sub⟩ — a regression for the
     previously-unreachable complex+array-pot_sub combination) and match
     the single-device split run."""
-    from wafer_tpu import solver
-    from wafer_tpu.ops import split_complex as sc
+    from wavefarm import solver
+    from wavefarm.ops import split_complex as sc
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     common = dict(
@@ -715,1256 +446,68 @@ def test_sharded_split_full_cornell_pot_sub_array(tmp_run, monkeypatch):
     )
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (4, 1, 1)])
-def test_sharded_resident_matches_sharded_xla(mesh_shape, monkeypatch):
-    """VMEM-resident chunks under shard_map: R·ext-deep ghost zones
-    exchanged once per R in-kernel steps (blind sweep + validity-by-depth),
-    with global-edge Dirichlet re-zeroing — vs the XLA sharded sweep."""
-    monkeypatch.setenv("WAFER_SHARDED_ICI", "0")  # per-window ppermute path
+@pytest.mark.parametrize("n_lower", [0, 1])
+@pytest.mark.parametrize("mesh_shape", [(4, 1, 1), (1, 4, 1)])
+@pytest.mark.parametrize("order", ["ThreePoint", "FivePoint", "SevenPoint"])
+def test_sharded_split_chunk_matches_single_device(order, mesh_shape, n_lower):
+    """The sharded split-complex chunk ((re, im) halos, psum'd complex
+    Gram-Schmidt) == the single-device split chunk, incl. the transposed
+    layout of a y mesh."""
+    from wavefarm.ops import split_complex as sc
+    from wavefarm.parallel.sharded_split import ShardedSplitOps
+
+    n = {"ThreePoint": 8, "FivePoint": 16, "SevenPoint": 24}[order]
     cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 40, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 5},
-    )
-    ext = 1
-    rng = np.random.default_rng(13)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    )
-    # R=2 (screen_update 5 → 2 resident calls + 1 remainder step)
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True, res_steps=2
-    )
-    assert ops_p.res_steps == 2, ops_p.res_steps
-    assert ops_p.analytic is not None
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("order", ["FivePoint", "SevenPoint"])
-def test_sharded_resident_deep_ext(monkeypatch, order):
-    """Deep ghost zones at ext=2,3 (R=2 → 4/6-row halos): blind-sweep
-    validity and edge re-zeroing for the wider stencils."""
-    monkeypatch.setenv("WAFER_SHARDED_ICI", "0")  # per-window ppermute path
-    cfg = base_config(
-        precision="f32",
-        central_difference=order,
-        grid={"size": {"x": 48, "y": 8, "z": 128}, "dn": 0.25, "dt": 0.004},
-        output={"screen_update": 4},
-    )
-    ext = cfg.central_difference.ext
-    rng = np.random.default_rng(5)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((2, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True, res_steps=2
-    )
-    assert ops_p.res_steps == 2, ops_p.res_steps
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-5, atol=5e-6)
-
-
-@pytest.mark.parametrize("mesh_shape,order", [
-    ((2, 1, 1), "ThreePoint"),
-    ((4, 1, 1), "ThreePoint"),
-    ((2, 1, 1), "FivePoint"),
-])
-def test_sharded_ici_resident_matches_sharded_xla(mesh_shape, order):
-    """Whole-chunk ψ residency with in-kernel ICI window exchanges (remote
-    DMAs into parity-slotted landing strips) == the XLA sharded sweep.
-    screen_update 5 / R=2 → one kernel call spanning two windows (one
-    in-kernel exchange at step 2) + one remainder step. SevenPoint rides
-    the race-detector test below; FivePoint's 4-row strips here close the
-    ext=2 sharded hole (VERDICT r4 #2)."""
-    cfg = base_config(
-        precision="f32",
-        central_difference=order,
-        grid={"size": {"x": 40, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 5},
-    )
-    ext = cfg.central_difference.ext
-    rng = np.random.default_rng(13)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True, res_steps=2
-    )
-    assert ops_p.ici_res, "in-kernel ICI residency gate should engage"
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_ici_resident_three_windows_race_detector():
-    """Three exchange windows (screen_update 6, R=2 → exchanges at steps 2
-    and 4, exercising BOTH parity slots) under the TPU interpret mode's
-    race detector — validates the landing-strip slot-hazard argument, the
-    SevenPoint deep halo (6-row strips), and bit-level agreement."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    cfg = base_config(
-        precision="f32",
-        central_difference="SevenPoint",
-        grid={"size": {"x": 48, "y": 8, "z": 128}, "dn": 0.25, "dt": 0.004},
-        output={"screen_update": 6},
-    )
-    ext = 3
-    rng = np.random.default_rng(5)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((2, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True,
-        pallas_interpret=pltpu.InterpretParams(
-            dma_execution_mode="eager", detect_races=True
-        ),
-        res_steps=2,
-    )
-    assert ops_p.ici_res
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-5, atol=5e-6)
-
-
-def _split_setup(seed=51, n=8, screen_update=3, potential="ComplexHarmonic",
-                 order="ThreePoint", ny=8, **cfg_kw):
-    cfg = base_config(
-        precision="f32",
-        potential=potential,
+        potential="ComplexHarmonic",
         absorb=0.2,
         central_difference=order,
-        grid={"size": {"x": n, "y": ny, "z": 128}, "dn": 0.2, "dt": 0.004},
-        output={"screen_update": screen_update},
-        **cfg_kw,
-    )
-    rng = np.random.default_rng(seed)
-    pr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    pi = rng.normal(size=cfg.work_size()).astype(np.float32)
-    vr, vi = pmod.generate_split(cfg)
-    ar, ai, br, bi = pmod.build_ab_split(
-        vr.astype(jnp.float32), vi.astype(jnp.float32), cfg.grid.dt
+        grid={"size": {"x": n, "y": n, "z": 8}, "dn": 0.2, "dt": 0.004},
+        output={"screen_update": 3},
     )
     ext = cfg.central_difference.ext
+    rng = np.random.default_rng(51)
     w = geometry.work_area
-    return cfg, pr, pi, (
-        w(ar, ext), w(ai, ext), w(br, ext), w(bi, ext)
-    )
-
-
-# blocks on a 4-way x mesh must be ≥ ext wide (the driver validates this)
-_SPLIT_N = {"ThreePoint": 8, "FivePoint": 16, "SevenPoint": 24}
-
-
-@pytest.mark.parametrize("order", ["ThreePoint", "FivePoint", "SevenPoint"])
-@pytest.mark.parametrize("n_lower", [0, 1])
-def test_sharded_split_pallas_matches_xla(n_lower, order):
-    """Sharded split fused kernel (x-only mesh, analytic complex B) == the
-    sharded XLA split path, interpret mode — ground and excited (psum'd
-    complex coefficient recursion) paths (VERDICT r2 #4), at every halo
-    width ext ∈ {1,2,3} (VERDICT r4 #1)."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(
-        order=order, n=_SPLIT_N[order]
-    )
-    mesh = make_mesh((4, 1, 1))
-    if n_lower:
-        rng = np.random.default_rng(52)
-        lr = rng.normal(size=cfg.work_size()).astype(np.float32)
-        li = rng.normal(size=cfg.work_size()).astype(np.float32)
-        nrm = np.sqrt(np.sum(lr.astype(np.float64) ** 2 + li.astype(np.float64) ** 2))
-        lr = (lr / nrm).astype(np.float32)
-        li = (li / nrm).astype(np.float32)
-        sr = jnp.stack([jnp.asarray(lr)])
-        si = jnp.stack([jnp.asarray(li)])
-    else:
-        sr = si = None
-
-    ops_x = ShardedSplitOps(cfg, mesh, n_lower, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(sr), ops_x.put_store(si),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, n_lower, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.sc_analytic is not None
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(sr), ops_p.put_store(si),
-    )
-    tol = dict(rtol=5e-4, atol=2e-5) if n_lower else dict(rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr), **tol)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri), **tol)
-
-
-def test_sharded_split_transposed_y_mesh_matches_xla():
-    """A single-axis y mesh rides the split-kernel ladder behind the
-    layout permutation (round-2 split pallas required a NATURAL x-only
-    mesh — (1,4,1) complex runs fell back to XLA). Ground + one excited
-    state."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=54)
-    rng = np.random.default_rng(55)
-    lr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    li = rng.normal(size=cfg.work_size()).astype(np.float32)
-    nn = np.sqrt(np.sum(lr.astype(np.float64) ** 2 + li.astype(np.float64) ** 2))
-    lr, li = (lr / nn).astype(np.float32), (li / nn).astype(np.float32)
-    sr = jnp.stack([jnp.asarray(lr)])
-    si = jnp.stack([jnp.asarray(li)])
-
-    mesh = make_mesh((1, 4, 1))
-    for n_lower, store in ((0, (None, None)), (1, (sr, si))):
-        ops_x = ShardedSplitOps(cfg, mesh, n_lower, use_pallas=False)
-        rr, ri = ops_x.evolve_chunk(
-            ops_x.put(pr), ops_x.put(pi),
-            ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-            ops_x.put_store(store[0]), ops_x.put_store(store[1]),
-        )
-        ops_p = ShardedSplitOps(
-            cfg, mesh, n_lower, use_pallas=True, pallas_interpret=True
-        )
-        assert ops_p.use_pallas and ops_p.perm == (1, 0, 2)
-        assert ops_p.sc_analytic is not None
-        or_, oi_ = ops_p.evolve_chunk(
-            ops_p.put(pr), ops_p.put(pi),
-            ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-            ops_p.put_store(store[0]), ops_p.put_store(store[1]),
-        )
-        tol = dict(rtol=2e-5, atol=2e-6) if n_lower == 0 else dict(
-            rtol=5e-4, atol=2e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(ops_p.get(or_)), np.asarray(ops_x.get(rr)), **tol
-        )
-        np.testing.assert_allclose(
-            np.asarray(ops_p.get(oi_)), np.asarray(ops_x.get(ri)), **tol
-        )
-
-
-@pytest.mark.parametrize("order", ["ThreePoint", "SevenPoint"])
-def test_sharded_split_pallas_streamed_b(monkeypatch, order):
-    """Sharded split kernel with streamed (Br, Bi) blocks (no analytic
-    formula) == sharded XLA split path."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(
-        seed=53, order=order, n=_SPLIT_N[order]
-    )
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    # force the streamed path by hiding the analytic kind table entry
-    from wafer_tpu.config import PotentialType
-    import wafer_tpu.ops.pallas_split as ps_mod
-
-    orig = ps_mod._pick_tx_sc
-
-    def no_analytic(nx, ny, nz, ext, itemsize, n_lower, analytic_b=False):
-        if analytic_b:
-            return None
-        return orig(nx, ny, nz, ext, itemsize, n_lower, analytic_b)
-
-    monkeypatch.setattr(ps_mod, "_pick_tx_sc", no_analytic)
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.sc_analytic is None
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr), rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri), rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("use_ici", [False, True])
-@pytest.mark.parametrize("mesh_shape,order,n", [
-    ((2, 1, 1), "ThreePoint", 40),
-    ((4, 1, 1), "ThreePoint", 40),
-    # wider halos: the R-window recompute gate needs bx ≥ 8·(R−1)·ext
-    ((2, 1, 1), "FivePoint", 40),
-    ((2, 1, 1), "SevenPoint", 48),
-])
-def test_sharded_split_resident_windows_match_xla(mesh_shape, order, n,
-                                                  use_ici, monkeypatch):
-    """Sharded split ground on deep-ghost-zone resident windows == the
-    sharded XLA split path, both cadences: per-window ppermute exchange
-    (WAFER_SHARDED_ICI=0) and whole-chunk in-kernel ICI remote DMAs
-    (default). screen_update 5 / R=2 → two windows + a remainder step
-    (ici: one partial in-kernel window), exercising the blind sweep and
-    the mixed cadence — at ext ∈ {1,2,3} (R·ext-deep strips)."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    monkeypatch.setenv("WAFER_SHARDED_ICI", "1" if use_ici else "0")
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=54, n=n,
-                                                 screen_update=5,
-                                                 order=order)
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.sc_res_steps == 2, ops_p.sc_res_steps
-    assert ops_p.sc_ici == use_ici
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri),
-                               rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_split_ici_race_detector():
-    """The split ici kernel's remote-DMA schedule (4 strips per window,
-    both components) under the interpret-mode race detector, over two
-    chunk calls so the cross-chunk parity-slot barrier is exercised."""
-    from jax.experimental.pallas import tpu as pltpu
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=57, n=32,
-                                                 screen_update=4)
-    mesh = make_mesh((2, 1, 1))
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True,
-        pallas_interpret=pltpu.InterpretParams(
-            dma_execution_mode="eager", detect_races=True
-        ),
-    )
-    assert ops_p.sc_ici and ops_p.sc_res_steps == 2
-    args_x = (ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-              ops_x.put_store(None), ops_x.put_store(None))
-    args_p = (ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-              ops_p.put_store(None), ops_p.put_store(None))
-    rr, ri = ops_x.put(pr), ops_x.put(pi)
-    or_, oi_ = ops_p.put(pr), ops_p.put(pi)
-    for _ in range(2):
-        rr, ri = ops_x.evolve_chunk(rr, ri, *args_x)
-        or_, oi_ = ops_p.evolve_chunk(or_, oi_, *args_p)
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr),
-                               rtol=5e-5, atol=5e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri),
-                               rtol=5e-5, atol=5e-6)
-
-
-@pytest.mark.parametrize("order", ["ThreePoint", "SevenPoint"])
-@pytest.mark.parametrize("per_step_norm", [False, True])
-def test_sharded_split_whole_chunk_resident(per_step_norm, order):
-    """1×1×1-mesh split ground runs the whole chunk as ONE resident-pair
-    call (with the per-step drift guard carried in SMEM when asked) and
-    matches the sharded XLA path."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=55, n=16, order=order)
-    mesh = make_mesh((1, 1, 1))
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.sc_whole_chunk
-    fn_x = ops_x.evolve_chunk_psn if per_step_norm else ops_x.evolve_chunk
-    fn_p = ops_p.evolve_chunk_psn if per_step_norm else ops_p.evolve_chunk
-    rr, ri = fn_x(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    or_, oi_ = fn_p(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    tol = dict(rtol=5e-5, atol=5e-6) if per_step_norm else dict(
-        rtol=2e-5, atol=2e-6
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr), **tol)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri), **tol)
-
-
-def test_sharded_ground_blocked_shortcut(monkeypatch):
-    """1×1×1-mesh ground whose ψ exceeds whole-array residency rides the
-    single-chip x-blocked deep-halo resident kernel and matches the
-    sharded XLA path."""
-    import wafer_tpu.ops.pallas_stencil as pk
-
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 64, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 5},
-    )
-    ext = 1
-    rng = np.random.default_rng(58)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    monkeypatch.setattr(pk, "resident_supported", lambda *a_: False)
-    mesh = make_mesh((1, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(geometry.work_area(a, ext)),
-            ops_x.put(geometry.work_area(b, ext)), ops_x.put_store(None),
-        )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.resb_plan is not None
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(geometry.work_area(a, ext)),
-            ops_p.put(geometry.work_area(b, ext)), ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("mesh_shape", [(2, 1, 1), (4, 1, 1)])
-def test_sharded_ground_blocked_windows_match_xla(mesh_shape, monkeypatch):
-    """Multi-shard blocks past windowed residency ride blocked exchange
-    windows (one out-of-place R-step blocked pass per R·ext-deep ppermute
-    exchange, edges-gated Dirichlet) == the sharded XLA path. Forced by
-    disabling the windowed-resident slab picker; screen_update 5 → two
-    windows + remainder."""
-    import wafer_tpu.ops.pallas_stencil as pk
-
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 128, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 5},
-    )
-    ext = 1
-    rng = np.random.default_rng(59)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(geometry.work_area(a, ext)),
-            ops_x.put(geometry.work_area(b, ext)), ops_x.put_store(None),
-        )
-    )
-    monkeypatch.setattr(pk, "_pick_tx_res", lambda *a_: None)
-    ops_p = ShardedOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.res_steps == 0 and not ops_p.ici_res
-    assert ops_p.resb_sharded is not None
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(geometry.work_area(a, ext)),
-            ops_p.put(geometry.work_area(b, ext)), ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("mesh_shape,order", [
-    ((2, 1, 1), "ThreePoint"),
-    ((4, 1, 1), "ThreePoint"),
-    ((2, 1, 1), "SevenPoint"),
-])
-def test_sharded_split_blocked_windows_match_xla(mesh_shape, order,
-                                                 monkeypatch):
-    """Multi-shard split blocks past pair residency ride blocked exchange
-    windows == the sharded XLA split path (forced by disabling the
-    windowed slab picker)."""
-    import wafer_tpu.ops.pallas_stencil as pk
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=60, n=128,
-                                                 screen_update=5,
-                                                 order=order)
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    monkeypatch.setattr(pk, "_pick_tx_res", lambda *a_: None)
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.sc_res_steps == 0 and not ops_p.sc_ici
-    assert ops_p.sc_resb_sharded is not None
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri),
-                               rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("potential", ["ComplexHarmonic", "ComplexFullCornell"])
-def test_sharded_split_mixed_shortcut(monkeypatch, potential):
-    """1×1×1-mesh split ground whose pair exceeds whole-array residency
-    but whose RE component fits rides the single-chip mixed-residency
-    kernel and matches the sharded XLA path — both B sources (analytic
-    complex B for ComplexHarmonic; streamed (Br, Bi) windows for
-    ComplexFullCornell, whose Debye-screened B has no in-kernel form)."""
-    import wafer_tpu.ops.pallas_split as ps_mod
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    kw = {} if potential == "ComplexHarmonic" else {
-        "mass": 4.65, "sig": 0.223,
-    }
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=57, n=64,
-                                                 screen_update=5,
-                                                 potential=potential, **kw)
-    monkeypatch.setattr(ps_mod, "resident_sc_supported",
-                        lambda *a: False)
-    mesh = make_mesh((1, 1, 1))
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert not ops_p.sc_whole_chunk
-    assert ops_p.sc_mixed_tx is not None
-    assert ops_p.sc_resb_plan is None
-    assert (ops_p.sc_analytic is None) == (potential == "ComplexFullCornell")
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri),
-                               rtol=2e-5, atol=2e-6)
-
-    # per-step-norm (drift-guard / delayed-GS) chunks ride the mixed
-    # kernel's deferred-racc variant, not the 1-step fused fallback
-    nrr, nri = ops_x.evolve_chunk_psn(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    onr, oni = ops_p.evolve_chunk_psn(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(onr), np.asarray(nrr),
-                               rtol=5e-5, atol=5e-6)
-    np.testing.assert_allclose(np.asarray(oni), np.asarray(nri),
-                               rtol=5e-5, atol=5e-6)
-
-
-def test_sharded_split_blocked_shortcut(monkeypatch):
-    """1×1×1-mesh split ground whose pair exceeds whole-array residency
-    AND whose re component misses the mixed plan rides the single-chip
-    x-blocked deep-halo resident kernel and matches the sharded XLA
-    path."""
-    import wafer_tpu.ops.pallas_split as ps_mod
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(seed=56, n=64,
-                                                 screen_update=5)
-    monkeypatch.setattr(ps_mod, "resident_sc_supported",
-                        lambda *a: False)
-    monkeypatch.setattr(ps_mod, "pick_tx_mixed_sc",
-                        lambda *a, **k: None)
-    mesh = make_mesh((1, 1, 1))
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert not ops_p.sc_whole_chunk
-    assert ops_p.sc_resb_plan is not None
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(np.asarray(or_), np.asarray(rr),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(oi_), np.asarray(ri),
-                               rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("mesh_shape,order", [
-    ((2, 2, 2), "ThreePoint"),
-    ((4, 2, 1), "ThreePoint"),
-    ((1, 2, 2), "ThreePoint"),
-    # wider y/z halos through the ppermute pads (ext ∈ {2,3})
-    ((2, 2, 2), "FivePoint"),
-    ((2, 2, 2), "SevenPoint"),
-])
-def test_sharded_yzp_kernel_matches_sharded_xla(mesh_shape, order):
-    """Multi-axis meshes on the kernel ladder (VERDICT r2 #3): the
-    y/z-padded kernel with ppermute'd y/z halos == the sharded XLA sweep,
-    interpret mode — analytic-B, ground state."""
-    cfg = base_config(
-        precision="f32",
-        central_difference=order,
-        grid={"size": {"x": 8, "y": 16, "z": 256}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = cfg.central_difference.ext
-    rng = np.random.default_rng(61)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.analytic is not None
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_yzp_permuted_no_zpad_matches_xla():
-    """2-axis meshes ride the zp=0 yzp variant behind an eligibility-ranked
-    layout permutation: a (2,4,1) mesh on a 16x32x256 grid transposes to a
-    (4,2,1) local mesh (most-sharded axis leading, the unsharded axis last,
-    where the kernel keeps the global z Dirichlet in-register with no
-    128-lane pads)."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 16, "y": 32, "z": 256}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(63)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((2, 4, 1))
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(ops_x.get(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    ))
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.perm == (1, 0, 2)
-    assert ops_p.yzp_zp == 0
-    assert ops_p.analytic is not None
-    out = np.asarray(ops_p.get(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-    # the fully-sharded (4,2,1) mesh on the same grid keeps zp=0 too
-    ops_q = ShardedOps(cfg, make_mesh((4, 2, 1)), 0, use_pallas=True,
-                       pallas_interpret=True)
-    assert ops_q.pallas_mode == "yzp" and ops_q.yzp_zp == 0
-
-
-@pytest.mark.parametrize(
-    "mesh_shape,size,order,screen_update,want_r",
-    [
-        ((4, 2, 1), {"x": 16, "y": 32, "z": 256}, "ThreePoint", 8, 2),
-        ((2, 2, 2), {"x": 16, "y": 16, "z": 256}, "ThreePoint", 16, 2),
-        ((2, 2, 1), {"x": 32, "y": 32, "z": 256}, "FivePoint", 4, 2),
-        ((2, 2, 1), {"x": 32, "y": 32, "z": 256}, "SevenPoint", 4, 2),
-    ],
-)
-def test_sharded_yzp_resident_windows_match_xla(
-    mesh_shape, size, order, screen_update, want_r
-):
-    """Multi-axis resident windows (R blind in-kernel sweeps per HBM pass,
-    R·ext-deep halos on every axis exchanged once per window) == the
-    sharded XLA sweep, across window boundaries and at global corners."""
-    cfg = base_config(
-        precision="f32",
-        central_difference=order,
-        grid={"size": size, "dn": 0.2, "dt": 0.002},
-        output={"screen_update": screen_update},
-    )
-    ext = cfg.central_difference.ext
-    rng = np.random.default_rng(64)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(ops_x.get(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    ))
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.res_yzp is not None and ops_p.res_yzp[0] == want_r
-    assert ops_p.analytic is not None
-    out = np.asarray(ops_p.get(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-6)
-
-
-@pytest.mark.parametrize(
-    "mesh_shape,size,order,screen_update",
-    [
-        ((4, 2, 1), {"x": 128, "y": 32, "z": 256}, "ThreePoint", 8),
-        ((2, 2, 2), {"x": 64, "y": 16, "z": 256}, "ThreePoint", 8),
-    ],
-)
-def test_sharded_yzp_blocked_windows_match_xla(
-    monkeypatch, mesh_shape, size, order, screen_update
-):
-    """x-blocked y/z-padded windows (>VMEM shard blocks: VMEM-sized
-    x-blocks swept blind R times per out-of-place pass, once-per-window
-    exchange) == the sharded XLA sweep. The resident budget is pinched so
-    pick_res_yzp declines and the blocked composition engages — the
-    512³-on-a-multi-axis-mesh situation at test scale."""
-    from wafer_tpu.ops import pallas_stencil as pk
-
-    monkeypatch.setattr(pk, "_RES_BUDGET", 1_100_000)
-    cfg = base_config(
-        precision="f32",
-        central_difference=order,
-        grid={"size": size, "dn": 0.2, "dt": 0.002},
-        output={"screen_update": screen_update},
-    )
-    ext = cfg.central_difference.ext
-    rng = np.random.default_rng(66)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(ops_x.get(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    ))
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.res_yzp is None
-    assert ops_p.resb_yzp is not None
-    bxk_w, r_w, _tx_w, _yp_w = ops_p.resb_yzp
-    assert r_w >= 2
-    assert ops_p.analytic is not None
-    out = np.asarray(ops_p.get(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-6)
-
-
-def test_sharded_yzp_blocked_windowed_psn_matches_per_step(monkeypatch):
-    """The windowed drift guard rides the x-blocked window kernel too:
-    its with_norm accumulation across blocks == the per-step-normalised
-    trajectory up to rescaling (docs/PARITY.md divergence 7)."""
-    from wafer_tpu.ops import pallas_stencil as pk
-
-    monkeypatch.setattr(pk, "_RES_BUDGET", 1_100_000)
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 128, "y": 32, "z": 256}, "dn": 0.2, "dt": 0.002},
-        output={"screen_update": 8},
-    )
-    ext = 1
-    rng = np.random.default_rng(67)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    phi_int /= np.sqrt(np.sum(phi_int.astype(np.float64) ** 2)).astype(
-        np.float32
-    )
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((4, 2, 1))
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.resb_yzp is not None
-    assert ops_p.psn_window_steps == ops_p.resb_yzp[1]
-    assert ops_p.evolve_chunk_psn_win is not None
-    ref = np.asarray(ops_p.get(
-        ops_p.evolve_chunk_psn(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    out = np.asarray(ops_p.get(
-        ops_p.evolve_chunk_psn_win(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    assert abs(float(np.sum(out.astype(np.float64) ** 2)) - 1.0) < 1e-5
-    assert abs(float(np.sum(ref.astype(np.float64) ** 2)) - 1.0) < 1e-5
-    np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-6)
-
-
-def test_sharded_yzp_windowed_psn_matches_per_step():
-    """The windowed drift guard (renormalise once per R-step resident
-    window) differs from the per-step-normalised chunk only by rescaling
-    (docs/PARITY.md divergence 7): both outputs are unit-norm fields in
-    the same direction."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 16, "y": 16, "z": 256}, "dn": 0.2, "dt": 0.002},
-        output={"screen_update": 4},
-    )
-    ext = 1
-    rng = np.random.default_rng(65)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    phi_int /= np.sqrt(np.sum(phi_int.astype(np.float64) ** 2)).astype(
-        np.float32
-    )
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((2, 2, 2))
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.psn_window_steps == 2
-    assert ops_p.evolve_chunk_psn_win is not None
-    ref = np.asarray(ops_p.get(
-        ops_p.evolve_chunk_psn(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    out = np.asarray(ops_p.get(
-        ops_p.evolve_chunk_psn_win(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    ))
-    # both unit-norm
-    assert abs(float(np.sum(out.astype(np.float64) ** 2)) - 1.0) < 1e-5
-    assert abs(float(np.sum(ref.astype(np.float64) ** 2)) - 1.0) < 1e-5
-    np.testing.assert_allclose(out, ref, rtol=3e-5, atol=3e-6)
-
-
-def test_sharded_yzp_excited_and_streamed_b(monkeypatch):
-    """yzp kernel: excited state (psum'd coefficient recursion with
-    exchanged stored-state pads) and the streamed-B variant."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 8, "y": 16, "z": 256}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 2},
-    )
-    ext = 1
-    rng = np.random.default_rng(62)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-    store = jnp.stack([jnp.asarray(lower)])
-
-    mesh = make_mesh((2, 2, 2))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(store),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    assert ops_p.pallas_mode == "yzp"
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(store),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=2e-5)
-
-    # streamed-B (no analytic formula): force by hiding the analytic fit
-    import wafer_tpu.ops.pallas_stencil as pk_mod
-
-    orig = pk_mod._pick_tx_yzp
-
-    def no_analytic(bx, byp, bzp, by, bz, ext_, itemsize, n_lower,
-                    analytic_b=False):
-        if analytic_b:
-            return None
-        return orig(bx, byp, bzp, by, bz, ext_, itemsize, n_lower, analytic_b)
-
-    monkeypatch.setattr(pk_mod, "_pick_tx_yzp", no_analytic)
-    ops_s = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    assert ops_s.pallas_mode == "yzp" and ops_s.analytic is None
-    ref0 = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(store),
-        )
-    )
-    del ref0  # excited ref above reused; ground streamed check below
-    ops_x0 = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    refg = np.asarray(
-        ops_x0.evolve_chunk(
-            ops_x0.put(phi_int), ops_x0.put(a_int), ops_x0.put(b_int),
-            ops_x0.put_store(None),
-        )
-    )
-    outg = np.asarray(
-        ops_s.evolve_chunk(
-            ops_s.put(phi_int), ops_s.put(a_int), ops_s.put(b_int),
-            ops_s.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(outg, refg, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_resident_exc_matches_xla(monkeypatch):
-    """Sharded excited fast path (per-step ψ-resident sweeps, psum'd
-    coefficient recursion, streamed l/Sl) == the sharded XLA path
-    (VERDICT r2 #2). f32 streams for strict equivalence."""
-    monkeypatch.setenv("WAFER_EXC_STREAM", "f32")
-    monkeypatch.setenv("WAFER_SHARDED_RES_EXC", "1")
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 32, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(71)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-    store = jnp.stack([jnp.asarray(lower)])
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(store),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    assert ops_p.use_res_exc, "resident-exc gate should engage at bx=8"
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(store),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=2e-5)
-
-
-def test_sharded_resident_exc_bf16_streams(monkeypatch):
-    """bf16 l/Sl streams on the sharded excited fast path: trajectory
-    within bf16 quantisation of the XLA path, orthogonality preserved."""
-    monkeypatch.setenv("WAFER_SHARDED_RES_EXC", "1")
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 32, "y": 16, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(72)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    store = jnp.stack([jnp.asarray(lower)])
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(geometry.work_area(a, ext)),
-            ops_x.put(geometry.work_area(b, ext)), ops_x.put_store(store),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    assert ops_p.use_res_exc
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(geometry.work_area(a, ext)),
-            ops_p.put(geometry.work_area(b, ext)), ops_p.put_store(store),
-        )
-    )
-    scale_ = max(np.abs(ref).max(), 1e-6)
-    assert np.abs(out - ref).max() / scale_ < 3e-2
-    ov = float(np.sum(lower.astype(np.float64) * out.astype(np.float64)))
-    n2 = float(np.sum(out.astype(np.float64) ** 2))
-    assert abs(ov) < 1e-3 * np.sqrt(n2), ov
-
-
-@pytest.mark.parametrize("mesh_shape", [(1, 1, 1), (2, 1, 1), (4, 1, 1)])
-@pytest.mark.parametrize("n_lower", [1, 2])
-def test_sharded_ici_excited_matches_xla(mesh_shape, n_lower, monkeypatch):
-    """ICI-resident excited chunk (ψ resident across R-step windows,
-    per-step Gram coefficients globally reduced by the in-kernel scalar
-    all-to-all, deep-padded l/Sl streams) == the sharded XLA path.
-    screen_update 6 / R=2 → three windows, both scalar parity slots and
-    both ψ-strip parity slots exercised. f32 streams for strictness."""
-    monkeypatch.setenv("WAFER_EXC_STREAM", "f32")
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 40, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 6},
-    )
-    ext = 1
-    rng = np.random.default_rng(77)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
+    pr, pi = (rng.normal(size=cfg.work_size()) for _ in range(2))
+    vr, vi = pmod.generate_split(cfg)
+    ar, ai, br, bi = pmod.build_ab_split(vr, vi, cfg.grid.dt)
     lowers = []
     for _ in range(n_lower):
-        w = rng.normal(size=cfg.work_size()).astype(np.float32)
-        w /= np.sqrt(np.sum(w.astype(np.float64) ** 2)).astype(np.float32)
-        lowers.append(jnp.asarray(w))
-    store = jnp.stack(lowers)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
+        lr, li = rng.normal(size=(2,) + cfg.work_size())
+        nrm = np.sqrt(np.sum(lr * lr + li * li))
+        lowers.append((lr / nrm, li / nrm))
 
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedOps(cfg, mesh, n_lower, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(store),
+    def pad(x):
+        return geometry.frame_with_halo(jnp.asarray(x), ext)
+
+    sr = jnp.stack([pad(l[0]) for l in lowers]) if n_lower else None
+    si = jnp.stack([pad(l[1]) for l in lowers]) if n_lower else None
+    ref_r, ref_i = sc.evolve_chunk_sc(
+        pad(pr), pad(pi), ar, ai, br, bi, sr, si, order, cfg.grid.dt,
+        cfg.grid.dn, cfg.mass, 3, n_lower,
+    )
+
+    ops = ShardedSplitOps(cfg, make_mesh(mesh_shape), n_lower)
+    store = [
+        ops.put_store(jnp.stack([jnp.asarray(l[c]) for l in lowers])
+                      if n_lower else None)
+        for c in (0, 1)
+    ]
+    out_r, out_i = ops.evolve_chunk(
+        ops.put(pr), ops.put(pi),
+        ops.put(w(ar, ext)), ops.put(w(ai, ext)),
+        ops.put(w(br, ext)), ops.put(w(bi, ext)), *store,
+    )
+    for got, ref in ((out_r, ref_r), (out_i, ref_i)):
+        np.testing.assert_allclose(
+            np.asarray(ops.get(got)), np.asarray(w(ref, ext)),
+            rtol=1e-12, atol=1e-13,
         )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, n_lower, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.ici_exc_r == 2, ops_p.ici_exc_r
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(store),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=2e-5)
-
-
-def test_sharded_ici_excited_race_detector(monkeypatch):
-    """The ICI-excited kernel's remote-DMA schedule (ψ strips per window +
-    scalars per step) under the interpret-mode race detector, SevenPoint
-    (6-row strips), with orthogonality of the result."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    monkeypatch.setenv("WAFER_EXC_STREAM", "f32")
-    cfg = base_config(
-        precision="f32",
-        central_difference="SevenPoint",
-        grid={"size": {"x": 48, "y": 8, "z": 128}, "dn": 0.25, "dt": 0.004},
-        output={"screen_update": 4},
-    )
-    ext = 3
-    rng = np.random.default_rng(78)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    store = jnp.stack([jnp.asarray(lower)])
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-
-    mesh = make_mesh((2, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(geometry.work_area(a, ext)),
-            ops_x.put(geometry.work_area(b, ext)), ops_x.put_store(store),
-        )
-    )
-    ops_p = ShardedOps(
-        cfg, mesh, 1, use_pallas=True,
-        pallas_interpret=pltpu.InterpretParams(
-            dma_execution_mode="eager", detect_races=True
-        ),
-    )
-    assert ops_p.ici_exc_r == 2, ops_p.ici_exc_r
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(geometry.work_area(a, ext)),
-            ops_p.put(geometry.work_area(b, ext)), ops_p.put_store(store),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=5e-5)
-    ov = float(np.sum(lower.astype(np.float64) * out.astype(np.float64)))
-    n2 = float(np.sum(out.astype(np.float64) ** 2))
-    assert abs(ov) < 1e-4 * np.sqrt(n2), ov
-
-
-def test_sharded_ici_excited_bf16_streams():
-    """bf16 deep-padded l/Sl streams on the ICI-excited path: within bf16
-    quantisation of the XLA trajectory, orthogonality preserved."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 32, "y": 16, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 6},
-    )
-    ext = 1
-    rng = np.random.default_rng(79)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    store = jnp.stack([jnp.asarray(lower)])
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-
-    mesh = make_mesh((2, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(geometry.work_area(a, ext)),
-            ops_x.put(geometry.work_area(b, ext)), ops_x.put_store(store),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    assert ops_p.ici_exc_r == 2
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(geometry.work_area(a, ext)),
-            ops_p.put(geometry.work_area(b, ext)), ops_p.put_store(store),
-        )
-    )
-    scale_ = max(np.abs(ref).max(), 1e-6)
-    assert np.abs(out - ref).max() / scale_ < 3e-2
-    ov = float(np.sum(lower.astype(np.float64) * out.astype(np.float64)))
-    n2 = float(np.sum(out.astype(np.float64) ** 2))
-    assert abs(ov) < 1e-3 * np.sqrt(n2), ov
 
 
 def test_sharded_sync_update_matches_per_chunk(tmp_run):
     """sync_update batching on the sharded driver: step counts, energies,
     and final fields match the per-chunk cadence (VERDICT r2 #7)."""
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     common = dict(
         grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.25, "dt": 0.015},
@@ -2004,8 +547,8 @@ def test_sharded_split_sync_update_matches_per_chunk(tmp_run, monkeypatch):
     of the four drivers to gain it): step counts, complex energies, and
     the final (re, im) pair match the per-chunk cadence on an f64 CPU
     mesh run."""
-    from wafer_tpu.ops import split_complex as sc
-    from wafer_tpu.parallel.sharded_split import run_sharded_split
+    from wavefarm.ops import split_complex as sc
+    from wavefarm.parallel.sharded_split import run_sharded_split
 
     monkeypatch.setattr(sc, "backend_supports_complex", lambda: False)
     common = dict(
@@ -2048,7 +591,7 @@ def test_sharded_sync_update_f32_precision(tmp_run):
     type-match the sharded measure's outputs at precision: f32 under x64
     (the CLI default) — an f32 v_infinity placeholder used to crash
     lax.cond at trace time on any potential without a pot_sub."""
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     common = dict(
         precision="f32",
@@ -2079,331 +622,11 @@ def test_sharded_sync_update_f32_precision(tmp_run):
     assert abs(e_ref - e_out) < 1e-5, (e_ref, e_out)
 
 
-def test_sharded_1x1x1_whole_chunk_resident():
-    """A fully unsharded mesh runs ground chunks as one whole-chunk
-    resident call (no per-exchange psi round trips) and still matches the
-    sharded XLA path."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 5},
-    )
-    ext = 1
-    rng = np.random.default_rng(81)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    a_int = geometry.work_area(a, ext)
-    b_int = geometry.work_area(b, ext)
-
-    mesh = make_mesh((1, 1, 1), devices=jax.devices()[:1])
-    ops_x = ShardedOps(cfg, mesh, 0, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(a_int), ops_x.put(b_int),
-            ops_x.put_store(None),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 0, use_pallas=True, pallas_interpret=True)
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(a_int), ops_p.put(b_int),
-            ops_p.put_store(None),
-        )
-    )
-    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-6)
-
-
-def test_sharded_windowed_excited_bf16_streams():
-    """bf16 stored-state windows on the sharded *windowed* excited path
-    (the default excited fast path): within bf16 quantisation of the XLA
-    trajectory, orthogonality preserved."""
-    cfg = base_config(
-        precision="f32",
-        grid={"size": {"x": 32, "y": 16, "z": 128}, "dn": 0.2, "dt": 0.01},
-        output={"screen_update": 3},
-    )
-    ext = 1
-    rng = np.random.default_rng(91)
-    phi_int = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lower /= np.sqrt(np.sum(lower.astype(np.float64) ** 2)).astype(np.float32)
-    v = pmod.generate(cfg)
-    a, b = pmod.build_ab(v, cfg.grid.dt)
-    store = jnp.stack([jnp.asarray(lower)])
-
-    mesh = make_mesh((4, 1, 1))
-    ops_x = ShardedOps(cfg, mesh, 1, use_pallas=False)
-    ref = np.asarray(
-        ops_x.evolve_chunk(
-            ops_x.put(phi_int), ops_x.put(geometry.work_area(a, ext)),
-            ops_x.put(geometry.work_area(b, ext)), ops_x.put_store(store),
-        )
-    )
-    ops_p = ShardedOps(cfg, mesh, 1, use_pallas=True, pallas_interpret=True)
-    assert not ops_p.use_res_exc  # windowed path is the default
-    out = np.asarray(
-        ops_p.evolve_chunk(
-            ops_p.put(phi_int), ops_p.put(geometry.work_area(a, ext)),
-            ops_p.put(geometry.work_area(b, ext)), ops_p.put_store(store),
-        )
-    )
-    scale_ = max(np.abs(ref).max(), 1e-6)
-    assert np.abs(out - ref).max() / scale_ < 3e-2
-    ov = float(np.sum(lower.astype(np.float64) * out.astype(np.float64)))
-    n2 = float(np.sum(out.astype(np.float64) ** 2))
-    assert abs(ov) < 1e-3 * np.sqrt(n2), ov
-
-
-@pytest.mark.parametrize("mesh_shape,order", [
-    ((2, 2, 2), "ThreePoint"),
-    ((4, 2, 1), "ThreePoint"),
-    ((1, 2, 2), "ThreePoint"),
-    # wider pair halos through the y/z ppermute pads (ext ∈ {2,3})
-    ((2, 2, 2), "FivePoint"),
-    ((2, 2, 2), "SevenPoint"),
-])
-def test_sharded_split_yzp_matches_xla(mesh_shape, order):
-    """Multi-axis meshes on the SPLIT kernel ladder: the y/z-padded split
-    kernel (pallas_split._evolve_kernel_sc_yzp) with ppermute'd pair halos
-    == the sharded XLA split sweep, interpret mode — analytic complex B,
-    ground state. Round-2/3 multi-axis complex runs fell back to XLA."""
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, pr, pi, (ar, ai, br, bi) = _split_setup(
-        seed=57, n=8, screen_update=3, order=order
-    )
-    import dataclasses
-
-    from wafer_tpu.config import Index3
-
-    cfg = dataclasses.replace(
-        cfg,
-        grid=dataclasses.replace(
-            cfg.grid, size=Index3(x=8, y=16, z=256)
-        ),
-    )
-    rng = np.random.default_rng(57)
-    pr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    pi = rng.normal(size=cfg.work_size()).astype(np.float32)
-    vr, vi = pmod.generate_split(cfg)
-    ar, ai, br, bi = pmod.build_ab_split(
-        vr.astype(jnp.float32), vi.astype(jnp.float32), cfg.grid.dt
-    )
-    ext = cfg.central_difference.ext
-    w = geometry.work_area
-    ar, ai, br, bi = w(ar, ext), w(ai, ext), w(br, ext), w(bi, ext)
-
-    mesh = make_mesh(mesh_shape)
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.sc_analytic is not None
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p.get(or_)), np.asarray(ops_x.get(rr)),
-        rtol=2e-5, atol=2e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p.get(oi_)), np.asarray(ops_x.get(ri)),
-        rtol=2e-5, atol=2e-6,
-    )
-
-
-def test_sharded_split_yzp_permuted_no_zpad_matches_xla():
-    """2-axis complex meshes ride the zp=0 split yzp variant behind the
-    eligibility-ranked layout permutation: a (2,4,1) mesh on a 16x32x256
-    grid transposes to (4,2,1) locally, keeping the global z Dirichlet
-    in-register (no 128-lane pads)."""
-    import dataclasses
-
-    from wafer_tpu.config import Index3
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, *_ = _split_setup(seed=58)
-    cfg = dataclasses.replace(
-        cfg,
-        grid=dataclasses.replace(
-            cfg.grid, size=Index3(x=16, y=32, z=256)
-        ),
-    )
-    rng = np.random.default_rng(58)
-    pr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    pi = rng.normal(size=cfg.work_size()).astype(np.float32)
-    vr, vi = pmod.generate_split(cfg)
-    ar, ai, br, bi = pmod.build_ab_split(
-        vr.astype(jnp.float32), vi.astype(jnp.float32), cfg.grid.dt
-    )
-    ext = 1
-    w = geometry.work_area
-    ar, ai, br, bi = w(ar, ext), w(ai, ext), w(br, ext), w(bi, ext)
-
-    mesh = make_mesh((2, 4, 1))
-    ops_x = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(None), ops_x.put_store(None),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.pallas_mode == "yzp"
-    assert ops_p.perm == (1, 0, 2)
-    assert ops_p.yzp_zp == 0
-    assert ops_p.sc_analytic is not None
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(None), ops_p.put_store(None),
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p.get(or_)), np.asarray(ops_x.get(rr)),
-        rtol=2e-5, atol=2e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p.get(oi_)), np.asarray(ops_x.get(ri)),
-        rtol=2e-5, atol=2e-6,
-    )
-
-
-def test_sharded_split_yzp_excited_psn_and_streamed_b(monkeypatch):
-    """Split yzp kernel on a (2,2,2) mesh: excited state (psum'd complex
-    coefficient recursion with exchanged stored-pair pads), the per-step-
-    norm ground variant, and the streamed-(Br,Bi) variant."""
-    import dataclasses
-
-    from wafer_tpu.config import Index3
-    from wafer_tpu.parallel.sharded_split import ShardedSplitOps
-
-    cfg, *_ = _split_setup(seed=59, screen_update=2)
-    cfg = dataclasses.replace(
-        cfg,
-        grid=dataclasses.replace(
-            cfg.grid, size=Index3(x=8, y=16, z=256)
-        ),
-    )
-    rng = np.random.default_rng(59)
-    pr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    pi = rng.normal(size=cfg.work_size()).astype(np.float32)
-    lr = rng.normal(size=cfg.work_size()).astype(np.float32)
-    li = rng.normal(size=cfg.work_size()).astype(np.float32)
-    nn = np.sqrt(
-        np.sum(lr.astype(np.float64) ** 2 + li.astype(np.float64) ** 2)
-    )
-    lr, li = (lr / nn).astype(np.float32), (li / nn).astype(np.float32)
-    sr, si = jnp.stack([jnp.asarray(lr)]), jnp.stack([jnp.asarray(li)])
-    vr, vi = pmod.generate_split(cfg)
-    ar, ai, br, bi = pmod.build_ab_split(
-        vr.astype(jnp.float32), vi.astype(jnp.float32), cfg.grid.dt
-    )
-    ext = 1
-    w = geometry.work_area
-    ar, ai, br, bi = w(ar, ext), w(ai, ext), w(br, ext), w(bi, ext)
-    mesh = make_mesh((2, 2, 2))
-
-    # excited
-    ops_x = ShardedSplitOps(cfg, mesh, 1, use_pallas=False)
-    rr, ri = ops_x.evolve_chunk(
-        ops_x.put(pr), ops_x.put(pi),
-        ops_x.put(ar), ops_x.put(ai), ops_x.put(br), ops_x.put(bi),
-        ops_x.put_store(sr), ops_x.put_store(si),
-    )
-    ops_p = ShardedSplitOps(
-        cfg, mesh, 1, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_p.pallas_mode == "yzp"
-    or_, oi_ = ops_p.evolve_chunk(
-        ops_p.put(pr), ops_p.put(pi),
-        ops_p.put(ar), ops_p.put(ai), ops_p.put(br), ops_p.put(bi),
-        ops_p.put_store(sr), ops_p.put_store(si),
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p.get(or_)), np.asarray(ops_x.get(rr)),
-        rtol=5e-4, atol=2e-5,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p.get(oi_)), np.asarray(ops_x.get(ri)),
-        rtol=5e-4, atol=2e-5,
-    )
-
-    # per-step-norm ground
-    ops_x0 = ShardedSplitOps(cfg, mesh, 0, use_pallas=False)
-    rr, ri = ops_x0.evolve_chunk_psn(
-        ops_x0.put(pr), ops_x0.put(pi),
-        ops_x0.put(ar), ops_x0.put(ai), ops_x0.put(br), ops_x0.put(bi),
-        ops_x0.put_store(None), ops_x0.put_store(None),
-    )
-    ops_p0 = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    or_, oi_ = ops_p0.evolve_chunk_psn(
-        ops_p0.put(pr), ops_p0.put(pi),
-        ops_p0.put(ar), ops_p0.put(ai), ops_p0.put(br), ops_p0.put(bi),
-        ops_p0.put_store(None), ops_p0.put_store(None),
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p0.get(or_)), np.asarray(ops_x0.get(rr)),
-        rtol=2e-5, atol=2e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_p0.get(oi_)), np.asarray(ops_x0.get(ri)),
-        rtol=2e-5, atol=2e-6,
-    )
-
-    # streamed (Br, Bi): hide the analytic fit
-    import wafer_tpu.ops.pallas_split as ps_mod
-
-    orig = ps_mod._pick_tx_sc_yzp
-
-    def no_analytic(bx, byp, bzp, by, bz, ext_, itemsize, n_lower,
-                    analytic_b=False):
-        if analytic_b:
-            return None
-        return orig(bx, byp, bzp, by, bz, ext_, itemsize, n_lower,
-                    analytic_b)
-
-    monkeypatch.setattr(ps_mod, "_pick_tx_sc_yzp", no_analytic)
-    ops_s = ShardedSplitOps(
-        cfg, mesh, 0, use_pallas=True, pallas_interpret=True
-    )
-    assert ops_s.pallas_mode == "yzp" and ops_s.sc_analytic is None
-    rr, ri = ops_x0.evolve_chunk(
-        ops_x0.put(pr), ops_x0.put(pi),
-        ops_x0.put(ar), ops_x0.put(ai), ops_x0.put(br), ops_x0.put(bi),
-        ops_x0.put_store(None), ops_x0.put_store(None),
-    )
-    or_, oi_ = ops_s.evolve_chunk(
-        ops_s.put(pr), ops_s.put(pi),
-        ops_s.put(ar), ops_s.put(ai), ops_s.put(br), ops_s.put(bi),
-        ops_s.put_store(None), ops_s.put_store(None),
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_s.get(or_)), np.asarray(ops_x0.get(rr)),
-        rtol=2e-5, atol=2e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ops_s.get(oi_)), np.asarray(ops_x0.get(ri)),
-        rtol=2e-5, atol=2e-6,
-    )
-
-
 def test_sharded_delayed_gram_equivalence(tmp_run):
     """Delayed re-orthogonalisation on the sharded driver (PARITY #12):
     default (gated) vs delayed_gram: false converge to the same excited
     oracle; the delayed chunks ride a ground per-step-norm ops instance."""
-    from wafer_tpu.parallel.solver_sharded import run_sharded
+    from wavefarm.parallel.solver_sharded import run_sharded
 
     common = dict(
         grid={"size": {"x": 16, "y": 16, "z": 16}, "dn": 0.3, "dt": 0.02},

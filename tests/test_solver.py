@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 
 from tests.conftest import base_config
-from wafer_tpu import errors, solver
-from wafer_tpu.io import run_dir
+from wavefarm import errors, solver
+from wavefarm.io import run_dir
 
 
 def _setup(cfg):
@@ -170,7 +170,7 @@ def test_drift_guard_disengages_after_transient(tmp_run, caplog):
     dn-width Gaussian, kinetic ≈ 3/(4·dn²)) engages per-step
     renormalisation for the transient chunks, then the guard disengages
     (hysteresis at half the e-fold limit) once E settles toward E₀ and
-    the fast non-psn kernel ladder resumes. The run still converges to
+    per-chunk normalisation resumes. The run still converges to
     the true ground state."""
     import logging
 
@@ -237,23 +237,16 @@ def test_sevenpoint_harmonic(tmp_run):
 
 
 def test_backend_resolution():
-    """auto → pallas only for real-f32 on accelerators (cpu here → xla)."""
-    import jax.numpy as jnp
+    """auto and xla both parse and name the one XLA sweep; pallas, whose
+    kernels were removed, is a typed config error (not a silent fallback)."""
+    from wavefarm import errors
 
-    from wafer_tpu import errors, solver
-
-    cfg32 = base_config(precision="f32")
-    cfg64 = base_config()
-    phi32 = jnp.zeros((4, 4, 4), jnp.float32)
-    phi64 = jnp.zeros((4, 4, 4), jnp.float64)
-    # tests run on CPU → auto resolves to xla everywhere
-    assert solver._resolve_backend(cfg32, phi32) == "xla"
-    assert solver._resolve_backend(cfg64, phi64) == "xla"
-    cfg_forced = base_config(precision="f32", backend="pallas")
+    assert base_config().backend == "auto"
+    assert base_config(backend="xla").backend == "xla"
+    with pytest.raises(errors.ConfigParseError, match="pallas"):
+        base_config(precision="f32", backend="pallas")
     with pytest.raises(errors.ConfigParseError):
-        solver._resolve_backend(cfg_forced, phi32)
-    cfg_xla = base_config(backend="xla")
-    assert solver._resolve_backend(cfg_xla, phi64) == "xla"
+        base_config(backend="cuda")
 
 
 def test_run_routes_to_sharded_mesh(tmp_run):
@@ -269,7 +262,7 @@ def test_run_routes_to_sharded_mesh(tmp_run):
         max_steps=100000,
         mesh={"x": 2, "y": 2, "z": 2},
     )
-    from wafer_tpu.io import run_dir
+    from wavefarm.io import run_dir
 
     run_dir.check_output_dir(cfg.project_name)
     results = solver.run(cfg)
@@ -331,136 +324,6 @@ def test_deep_well_f32_overflow_guard(tmp_run):
     results = solver.run(cfg)
     e0 = results[0].observables.energy / results[0].observables.norm2
     assert results[0].converged and -101.0 < e0 < -10.0, e0
-
-
-def test_solver_kgs_dispatch_end_to_end(tmp_run, monkeypatch):
-    """solve()'s excited-state dispatch onto the K=2 GS-fused kernel
-    (interpret mode, backend gate spoofed): energies match the XLA path."""
-    import functools
-
-    import jax
-
-    from wafer_tpu.ops import pallas_stencil as pk
-
-    common = dict(
-        precision="f32",
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.3, "dt": 0.02},
-        tolerance=1e-5,
-        potential="Harmonic",
-        init_condition="Constant",
-        output={"screen_update": 50, "file_type": "Json"},
-        max_steps=20000,
-        wavemax=1,
-    )
-    run_dir.check_output_dir("test")
-    cfg_x = base_config(**common)
-    # Seed state 1 from a deterministic noisy partial on disk (the IC
-    # arbitration prefers it, src/grid.rs:60-85): a state-1 IC cloned from
-    # the converged ground has a pure-rounding residual after projection,
-    # and which excited state it then relaxes to is a race between the odd
-    # noise-seeded level and the even contamination of the stored ground —
-    # i.e. dependent on which ground-state kernel ran. A noisy start
-    # overlaps every level and both legs converge to the true E₁.
-    from wafer_tpu.io import formats
-
-    _rng = np.random.default_rng(11)
-    _noisy = _rng.normal(size=cfg_x.work_size())
-    with open("input/wavefunction_1_partial.json", "w") as fh:
-        fh.write(formats.array_to_json(_noisy))
-    cfg_x.backend = "xla"
-    ref = solver.run(cfg_x, seed=5)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for fn in (
-        "evolve_chunk_fused",
-        "evolve_chunk_fused_k",
-        "evolve_chunk_fused_kgs",
-        "evolve_chunk_resident",
-    ):
-        monkeypatch.setattr(pk, fn, functools.partial(getattr(pk, fn), interpret=True))
-    # evolve_step_fused receives `interpret` positionally from the chunk
-    # drivers, so a keyword partial would clash — rewrite the slot instead
-    orig_step = pk.evolve_step_fused
-
-    def step_interp(*a, **k):
-        if len(a) >= 8:
-            a = a[:7] + (True,) + a[8:]
-        else:
-            k["interpret"] = True
-        return orig_step(*a, **k)
-
-    monkeypatch.setattr(pk, "evolve_step_fused", step_interp)
-    # tiny grid → the VMEM-residency gate would route to the 1-step path;
-    # force the kgs dispatch so this test covers it (the resident excited
-    # path would otherwise win — it has its own dispatch test below)
-    monkeypatch.setattr(pk, "kgs_profitable", lambda *a, **k: True)
-    monkeypatch.setattr(pk, "resident_exc_supported", lambda *a, **k: False)
-    cfg_p = base_config(**common)
-    out = solver.run(cfg_p, seed=5)
-
-    for r_ref, r_out in zip(ref, out):
-        e_ref = r_ref.observables.energy / r_ref.observables.norm2
-        e_out = r_out.observables.energy / r_out.observables.norm2
-        assert abs(e_ref - e_out) < 2e-4, (r_ref.wnum, e_ref, e_out)
-
-
-def test_solver_resident_dispatch_end_to_end(tmp_run, monkeypatch):
-    """solve()'s dispatch onto the VMEM-resident kernel for both the ground
-    state and the excited state (streamed l/Sl windows), interpret mode with
-    the backend gate spoofed: energies match the XLA path."""
-    import functools
-
-    import jax
-
-    from wafer_tpu.io import formats
-    from wafer_tpu.ops import pallas_stencil as pk
-
-    common = dict(
-        precision="f32",
-        grid={"size": {"x": 16, "y": 8, "z": 128}, "dn": 0.3, "dt": 0.02},
-        tolerance=1e-5,
-        potential="Harmonic",
-        init_condition="Constant",
-        output={"screen_update": 50, "file_type": "Json"},
-        max_steps=20000,
-        wavemax=1,
-    )
-    run_dir.check_output_dir("test")
-    cfg_x = base_config(**common)
-    # deterministic noisy state-1 start (see the kgs dispatch test)
-    _rng = np.random.default_rng(11)
-    with open("input/wavefunction_1_partial.json", "w") as fh:
-        fh.write(formats.array_to_json(_rng.normal(size=cfg_x.work_size())))
-    cfg_x.backend = "xla"
-    ref = solver.run(cfg_x, seed=5)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    for fn in (
-        "evolve_chunk_fused",
-        "evolve_chunk_fused_k",
-        "evolve_chunk_fused_kgs",
-        "evolve_chunk_resident",
-    ):
-        monkeypatch.setattr(
-            pk, fn, functools.partial(getattr(pk, fn), interpret=True)
-        )
-    orig_step = pk.evolve_step_fused
-
-    def step_interp(*a, **k):
-        if len(a) >= 8:
-            a = a[:7] + (True,) + a[8:]
-        else:
-            k["interpret"] = True
-        return orig_step(*a, **k)
-
-    monkeypatch.setattr(pk, "evolve_step_fused", step_interp)
-    cfg_p = base_config(**common)
-    out = solver.run(cfg_p, seed=5)
-
-    for r_ref, r_out in zip(ref, out):
-        e_ref = r_ref.observables.energy / r_ref.observables.norm2
-        e_out = r_out.observables.energy / r_out.observables.norm2
-        assert abs(e_ref - e_out) < 2e-4, (r_ref.wnum, e_ref, e_out)
 
 
 def test_sync_update_batching_matches_per_chunk(tmp_run):
@@ -529,7 +392,6 @@ def test_sync_update_batching_max_steps_and_snapshots(tmp_run):
     assert glob.glob(d + "/wavefunction_0_partial.*"), os.listdir(d)
 
 
-
 def test_pick_batch_k_max_steps_tail_ladder():
     """The max_steps tail degrades through the {k_sync, 4, 2, 1} ladder
     instead of collapsing to per-chunk for the whole tail (VERDICT r2 #10)."""
@@ -569,50 +431,6 @@ def test_pick_batch_k_snapshot_alignment():
             assert k == 1
         else:
             assert k * su <= to_snap
-
-
-def test_solver_blocked_resident_dispatch(tmp_run, monkeypatch):
-    """solve() routes >VMEM analytic grounds through the x-blocked
-    deep-halo resident kernel (regression: a 512^3 e2e run hit an unbound
-    local in the plan lookup); energies match the XLA path."""
-    import functools
-
-    import jax
-
-    from wafer_tpu.ops import pallas_stencil as pk
-
-    common = dict(
-        precision="f32",
-        grid={"size": {"x": 32, "y": 8, "z": 128}, "dn": 0.3, "dt": 0.02},
-        tolerance=1e-5,
-        potential="Harmonic",
-        init_condition="Gaussian",
-        output={"screen_update": 6, "file_type": "Json"},
-        max_steps=20000,
-    )
-    run_dir.check_output_dir("test")
-    cfg_x = base_config(**common)
-    cfg_x.backend = "xla"
-    ref = solver.run(cfg_x, seed=5)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # force the blocked path: whole-array residency "does not fit"
-    monkeypatch.setattr(pk, "resident_supported", lambda *a: False)
-    monkeypatch.setattr(
-        pk, "pick_resb", lambda nx, ny, nz, ext, it, su: (8, 2, 4, False, 1.0)
-    )
-    monkeypatch.setattr(
-        pk,
-        "evolve_chunk_resident_blocked",
-        functools.partial(pk.evolve_chunk_resident_blocked, interpret=True),
-    )
-    cfg_p = base_config(**common)
-    out = solver.run(cfg_p, seed=5)
-    for r_ref, r_out in zip(ref, out):
-        e_ref = r_ref.observables.energy / r_ref.observables.norm2
-        e_out = r_out.observables.energy / r_out.observables.norm2
-        assert abs(e_ref - e_out) < 2e-4, (e_ref, e_out)
-        assert r_ref.steps == r_out.steps
 
 
 def test_delayed_gram_gate_hysteresis():

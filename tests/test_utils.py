@@ -3,9 +3,9 @@
 import logging
 import os
 
-from wafer_tpu.ops.observables import Observables
-from wafer_tpu.utils import logging as wlog
-from wafer_tpu.utils import terminal
+from wavefarm.ops.observables import Observables
+from wavefarm.utils import logging as wlog
+from wavefarm.utils import terminal
 
 
 def test_dual_drain_logging(tmp_path):
@@ -70,10 +70,10 @@ def test_complex_energy_row():
 
 
 def test_banner_smoke(capsys):
-    terminal.print_banner("abc1234", 8, "tpu")
+    terminal.print_banner("abc1234", 8, "gpu")
     out = capsys.readouterr().out
     assert "abc1234" in out
-    assert "8 tpus" in out
+    assert "8 gpus" in out
 
 
 def test_git_sha_runs():
@@ -81,14 +81,3 @@ def test_git_sha_runs():
     assert isinstance(sha, str) and len(sha) >= 4
 
 
-def test_device_get_complex_safe():
-    import jax.numpy as jnp
-    import numpy as np
-
-    from wafer_tpu.utils.host import device_get, device_get_scalar
-
-    z = jnp.asarray([[1 + 2j, 3 - 4j]])
-    out = device_get(z)
-    np.testing.assert_array_equal(out, np.array([[1 + 2j, 3 - 4j]]))
-    assert device_get_scalar(jnp.asarray(2.5)) == 2.5
-    assert device_get_scalar(jnp.asarray(1 + 1j, jnp.complex64)) == 1 + 1j
