@@ -9,7 +9,8 @@ Phases (each prints one JSON line with its numbers, tolerances and verdict):
 A. One ``stencil.evolve_step``, then the fused observables, normalisation
    and projection against 2 stored states (``solver._measure_and_prepare``)
    at 256³ for every stencil order in f32, f64 and complex64, against the
-   plain NumPy float64 reference (``wavefarm/reference.py``).
+   plain NumPy float64 reference (``wavefarm/reference.py``); and a probe
+   that the overlap contraction is not run in TF32.
 B. The north-star run through the ``wafer`` CLI: 256³ Coulomb, ground plus
    2 excited states to 1e-6, checked against the recorded energies.
 C. Native complex64 through the CLI: the absorptive oscillator at 256³
@@ -179,12 +180,31 @@ def step_case(order: str, dtype: str, potential: str = "Harmonic",
     }
 
 
+def tf32_probe(shape=(256, 256, 256)) -> dict:
+    """The delayed-GS gate's overlap of a field with 2 copies of itself,
+    every value 1 + 2⁻¹³: exact in f32, but 1 in TF32 (10 mantissa bits).
+    An f32 contraction run in TF32 reads 1 − 2.4e-4 here where the answer
+    is 1; the spread random fields of ``step_case`` would hide it (random
+    rounding errors cancel to ~2⁻¹¹/√N)."""
+    import jax.numpy as jnp
+
+    from wavefarm import solver
+
+    c = jnp.full(shape, 1.0 + 2.0 ** -13, jnp.float32)
+    ov = float(solver._max_rel_overlap(c, jnp.stack([c, c])))
+    err = abs(ov - 1.0)
+    return {"case": "tf32_probe", "shape": list(shape), "overlap": ov,
+            "err": err, "tol": OVERLAP_TOL, "tf32_would_read": 1 - 2.0 ** -12,
+            "ok": bool(err <= OVERLAP_TOL)}
+
+
 def phase_a(shape=(256, 256, 256), dn: float = 0.05) -> dict:
     cases = []
     for dtype in DTYPES:
         for order in ORDERS:
             cases.append(emit(dict(phase="A", **step_case(order, dtype,
                                                            shape=shape, dn=dn))))
+    cases.append(emit(dict(phase="A", **tf32_probe(shape))))
     return {"phase": "A", "ok": all(c["ok"] for c in cases)}
 
 
@@ -512,7 +532,7 @@ def main(argv=None) -> int:
         count = 4
     else:
         phases = [phase_a(), phase_b(), phase_c()]
-        count = n_dev
+        count = 1
     if not all(p["ok"] for p in phases):
         print("chip_smoke: FAILED phases: "
               + ", ".join(p["phase"] for p in phases if not p["ok"]),

@@ -31,8 +31,11 @@ def test_phase_a_at_16(scratch, capsys):
     rec = chip_smoke.phase_a(shape=(16, 16, 16), dn=0.1)
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert rec == {"phase": "A", "ok": True}
-    assert len(lines) == 9 and all(l["ok"] for l in lines)
-    assert {(l["order"], l["dtype"]) for l in lines} == {
+    assert len(lines) == 10 and all(l["ok"] for l in lines)
+    probe = [l for l in lines if l.get("case") == "tf32_probe"]
+    assert len(probe) == 1 and probe[0]["shape"] == [16, 16, 16]
+    steps = [l for l in lines if "order" in l]
+    assert {(l["order"], l["dtype"]) for l in steps} == {
         (o, d) for o in chip_smoke.ORDERS for d in chip_smoke.DTYPES
     }
 
@@ -102,6 +105,32 @@ def test_backend_supports_complex_from_platform(platform, expected,
     monkeypatch.setattr(subprocess, "run", no_subprocess)
     monkeypatch.setattr(subprocess, "Popen", no_subprocess)
     assert split_complex.backend_supports_complex() is expected
+
+
+def _rounded_overlap(phi, stacked):
+    """``solver._max_rel_overlap`` with the contraction's inputs rounded to
+    bf16: on the CPU, a stand-in for a GPU running it in TF32."""
+    import jax.numpy as jnp
+
+    def r(x):
+        return x.astype(jnp.bfloat16).astype(x.dtype)
+
+    pn = jnp.sqrt(jnp.sum(phi * phi))
+    ln = jnp.sqrt(jnp.sum(stacked * stacked, axis=(1, 2, 3)))
+    ov = jnp.abs(jnp.tensordot(r(stacked), r(phi), axes=3))
+    return jnp.max(ov / (ln * pn))
+
+
+@pytest.mark.parametrize("rounded", [False, True], ids=["solver", "rounded"])
+def test_tf32_probe(rounded, monkeypatch):
+    """The probe passes on the solver's overlap and fails when the
+    contraction drops mantissa bits."""
+    from wavefarm import solver
+
+    if rounded:
+        monkeypatch.setattr(solver, "_max_rel_overlap", _rounded_overlap)
+    rec = chip_smoke.tf32_probe((16, 16, 16))
+    assert rec["ok"] is not rounded, rec
 
 
 def test_require_gpu_refuses_cpu():
